@@ -7,19 +7,36 @@ Needs one CUDA GPU (Hopper, sm_90a), nvcc, and this checkout; imports no
 JAX.  Phases, each of which raises (exit code 1) on failure:
 
   0. print the card's name and power limit; build the CUDA kernels from
-     ``photometric_bundle_adjustment_tpu_torch/csrc`` and time the build;
+     ``photometric_bundle_adjustment_tpu_torch/csrc`` (one nvcc each, all
+     started together) and time the build;
   1. the megakernel against its plain PyTorch version on the card, at
      EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
      observations, some warped off the image, one non-finite) and on a
      small image 8448 pixels wide; both timed with CUDA events;
-  2. the main path: ``refine_photometric`` on a synthetic EuRoC-scale map
-     (3 pyramid levels, 20 iterations, Huber 9), checking that the cost
-     falls at every level, that the result is finite, that the pose error
-     against ground truth shrank and that every kernel of the path ran;
-  3. print one JSON line describing each kernel, the card line again, and
+  2. the photometric path: ``refine_photometric`` on a synthetic
+     EuRoC-scale map (3 pyramid levels, 20 iterations, Huber 9), checking
+     that the cost falls at every level, that the result is finite, that
+     the pose error against ground truth shrank and that every kernel of
+     the path ran;
+  3. the SfM front end at EuRoC V1's size (82 stereo frames, 164 images of
+     480x752, 1500 detection slots): ``SfmPipeline.detect_keypoints``,
+     ``match_stereo`` and ``pair_matching.match_pairs`` over the whole
+     13,284-pair worklist with ``match.matches_to_pairs`` on the card
+     (held equal to the host's ``compact_matches_np``), checking the
+     corner counts, detection and description against the CPU plain
+     path, the stereo inliers against the rendered ground truth, the
+     Hamming kernel bit for bit against its plain version over the whole
+     worklist, and its launch count; the
+     kernel, the plain version and a ``torch._int_mm`` form of the same
+     function timed with CUDA events;
+  4. print one JSON line describing each kernel, the card line again, and
      as the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result.
+
+Bounds (``bound_ms``) are reckoned from this run's inputs against the
+H100 SXM's published peaks at 700 W: 3.35 TB/s of device memory and
+1,979 TOP/s of dense int8 tensor-core operations.
 """
 
 from __future__ import annotations
@@ -45,6 +62,25 @@ COST_RTOL = 1e-5
 COST_FMA_ULPS = 8
 ROWS_ATOL = 1e-4        # times max|ref| of each row block
 
+H100_BYTES_PER_S = 3.35e12
+H100_INT8_OPS_PER_S = 1.979e15
+H100_F32_OPS_PER_S = 67e12
+# megakernel f32 operations per observation, counted from
+# csrc/pba_mega.cu: per patch pixel about 40 for the bilinear value and
+# gradient, 68 for J = gx GA + gy GB and about 10 for the residual and
+# weight (8 pixels: about 950), plus about 550 for the payloads A0 and
+# A1; rounded up
+MEGA_OPS_PER_OBS = 2048
+
+# the front end at EuRoC V1's size (bench.py's 82 stereo frames)
+FRONT_FRAMES, FRONT_H, FRONT_W = 82, 480, 752
+CORNERS_MEDIAN = (300, 500)
+GT_PX, GT_SHARE = 2.0, 0.8
+# detection on the card against the CPU plain path, as in the tests:
+# corners identical; angles to 1e-4 rad; descriptor bits may flip only
+# where cos/sin differ by an ulp and a rotated tap lands on .5
+CHECK_IMAGES, ANGLE_ATOL, BIT_FLIP_SHARE = 4, 1e-4, 5e-4
+
 
 def check(cond: bool, msg: str):
     if not cond:
@@ -57,6 +93,14 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming, pba_mega
+
+    pba_mega.KERNEL_LAUNCHES = 0
+    hamming.KERNEL_LAUNCHES = 0
 
 
 def pose_errors(cameras: dict, poses_gt: dict, se3):
@@ -112,9 +156,45 @@ def compare_payloads(out, ref, images, label: str) -> float:
     return max_err
 
 
+def mega_bound_ms(args) -> float:
+    """Least time of one megakernel build on these inputs: the bytes it
+    must move (each valid observation's slabs and each image pixel its
+    taps touch read once, the (184, Og) output written once) over the
+    card's memory rate.  Its f32 operations (MEGA_OPS_PER_OBS each) take
+    far less, so it is bytes-bound."""
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+
+    images, ux, uy, GA, GB, refp, aff, iog, cnt, _ = args
+    K, H, W = images.shape
+    Og = ux.shape[1]
+    G = pba_mega.GROUP
+    lane = torch.arange(Og, device=ux.device) % G
+    ok = lane < cnt.long().repeat_interleave(G)
+    n_obs = int(ok.sum())
+    slab_rows = ux.shape[0] + uy.shape[0] + GA.shape[0] + GB.shape[0] \
+        + refp.shape[0] + aff.shape[0]
+    img = iog.long().repeat_interleave(G)[ok]
+    x0 = torch.floor(ux[:, ok]).clamp(-1, W - 1).long()
+    y0 = torch.floor(uy[:, ok]).clamp(-1, H - 1).long()
+    taps = torch.cat([((img * H + (y0 + dy).clamp(0, H - 1)) * W
+                       + (x0 + dx).clamp(0, W - 1)).reshape(-1)
+                      for dy in (0, 1) for dx in (0, 1)])
+    n_pix = int(torch.unique(taps).numel())
+    nbytes = 4 * (slab_rows * n_obs + n_pix + 2 * iog.numel()) \
+        + 4 * pba_mega.OUT_ROWS * Og
+    ops = MEGA_OPS_PER_OBS * n_obs
+    check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
+          "megakernel bound is not bytes")
+    print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
+          f"{4 * slab_rows} B, {n_pix} image pixels, output "
+          f"{4 * pba_mega.OUT_ROWS * Og / 1e6:.2f} MB) at 3.35 TB/s")
+    return 1e3 * nbytes / H100_BYTES_PER_S
+
+
 def kernel_phase(pipe, device):
     """Phase 1: the kernel against the plain version at EuRoC scale and on
-    an 8448-pixel-wide image.  Returns (max_abs_err, ms, plain_ms)."""
+    an 8448-pixel-wide image.  Returns (max_abs_err, ms, plain_ms,
+    bound_ms)."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
     from photometric_bundle_adjustment_tpu_torch.profile_solve import (
@@ -157,6 +237,9 @@ def kernel_phase(pipe, device):
     ms, plain_ms = float(np.mean(ms)), float(np.mean(plain_ms))
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per build "
           f"(mean of 2 x 20 calls, plain/kernel/kernel/plain)")
+    bound_ms = mega_bound_ms(args)
+    print(f"  bound {bound_ms:.4f} ms: the kernel at "
+          f"{bound_ms / ms:.1%} of it")
 
     # an image wider than the TPU kernel's 14-bit column field
     Hw, Ww, Ogw = 24, 8448, 2 * pba_mega.GROUP
@@ -178,11 +261,11 @@ def kernel_phase(pipe, device):
     pad = (torch.arange(Ogw, device=device) % pba_mega.GROUP) >= \
         cntw.long().repeat_interleave(pba_mega.GROUP)
     check(bool((outw[:, pad] == 0).all()), "padding rows are not zero")
-    return max_err, ms, plain_ms
+    return max_err, ms, plain_ms, bound_ms
 
 
 def slice_phase(pipe, device, se3):
-    """Phase 2: the main path.  Returns the kernel launch count."""
+    """Phase 2: the photometric path.  Returns the kernel launch count."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 
@@ -191,7 +274,7 @@ def slice_phase(pipe, device, se3):
     print(f"phase 2: refine_photometric, {len(pipe.cameras)} images, "
           f"{len(pipe.landmarks)} landmarks, {n_obs} observations, "
           f"{LEVELS} levels x {MAX_ITERATIONS} iterations")
-    pba_mega.KERNEL_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = pba_refine.refine_photometric(
         pipe, levels=LEVELS, max_iterations=MAX_ITERATIONS,
@@ -226,6 +309,209 @@ def slice_phase(pipe, device, se3):
     return launches
 
 
+def int_mm_best_two(desc, valid):
+    """The Hamming best-two of every ordered image pair through the int8
+    tensor cores, as one PyTorch library call per image: descriptors as
+    {0, 1} bit planes, H(a, b) = pop(a) + pop(b) - 2 a.b by
+    ``torch._int_mm``, then the plain min reductions.  Returns best,
+    second, idx, each (I, F, I): [a, row, b].  A yardstick for the
+    kernel's time; the port never calls it."""
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming
+
+    I, F, _ = desc.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
+    planes = ((desc[..., None] >> shifts) & 1).reshape(I * F, 256)
+    planes = planes.to(torch.int8)
+    pop = planes.sum(1, dtype=torch.int32)
+    big = torch.tensor(hamming.BIG, dtype=torch.int32, device=desc.device)
+    col_ok = valid.reshape(1, -1)
+    out = [torch.empty((I, F, I), dtype=torch.int32, device=desc.device)
+           for _ in range(3)]
+    for i in range(I):
+        rows = slice(i * F, (i + 1) * F)
+        ab = torch._int_mm(planes[rows], planes.t())
+        dist = torch.where(col_ok, pop[rows, None] + pop[None, :] - 2 * ab, big)
+        for o, r in zip(out, hamming.best_two_from(dist.reshape(F, I, F), 2)):
+            o[i] = r
+    return out
+
+
+def hamming_bound_ms(valid, a, b, F) -> tuple[float, str]:
+    """Least time of the all-pairs best-two (both directions) on these
+    inputs: the larger of the bytes (descriptor stack, masks and pair
+    indices read once, three (P, F) int32 outputs per direction written
+    once) over the memory rate, and the int8 operations of one bit-plane
+    product per pair between its valid descriptors (2 x 256 per distance;
+    one product serves both directions) over the int8 tensor-core rate."""
+    n = valid.sum(1).double()
+    P = a.numel()
+    ops = float((n[a] * n[b]).sum()) * 256 * 2
+    nbytes = valid.numel() * (32 + 1) + 2 * 2 * 4 * P + 2 * 3 * 4 * P * F
+    t_ops, t_bytes = ops / H100_INT8_OPS_PER_S, nbytes / H100_BYTES_PER_S
+    print(f"  bound: {ops:.3e} int8 operations ({1e3 * t_ops:.4f} ms at "
+          f"1,979 TOP/s), {nbytes / 1e6:.1f} MB ({1e3 * t_bytes:.4f} ms at "
+          f"3.35 TB/s)")
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def front_end_phase(device):
+    """Phase 3: the SfM front end at EuRoC V1's size.  Returns the
+    Hamming kernel's JSON fields."""
+    from photometric_bundle_adjustment_tpu_torch import interop
+    from photometric_bundle_adjustment_tpu_torch.features import (
+        describe,
+        match,
+        pair_matching,
+    )
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        SfmPipeline,
+    )
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        SEED,
+        time_ms,
+    )
+
+    t0 = time.perf_counter()
+    seq = synthetic.synth_stereo_sequence(n_frames=FRONT_FRAMES, H=FRONT_H,
+                                          W=FRONT_W, seed=SEED, device=device)
+    n_img = len(seq.images)
+    print(f"phase 3: SfM front end, {n_img} images of {FRONT_H}x{FRONT_W} "
+          f"(rendered on the card in {time.perf_counter() - t0:.1f} s)")
+    pipe = SfmPipeline(seq.images, seq.calib, log=lambda s: None,
+                       device=device)
+    cfg = pipe.cfg
+
+    # the main path, counts from 0
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.detect_keypoints()
+    t1 = time.perf_counter()
+    pipe.match_stereo()
+    t2 = time.perf_counter()
+    ids = np.array(pipe._pair_worklist())
+    _, valid, desc, _ = pipe._stack_features()
+    table = pair_matching.match_pairs(
+        desc, valid, ids[:, 0], ids[:, 1], cfg.feature_match_max_dist,
+        cfg.feature_match_test_next_best)
+    compact = match.matches_to_pairs(table, cfg.max_matches_per_pair)
+    count = compact[2].cpu().numpy()
+    t3 = time.perf_counter()
+    launches = hamming.KERNEL_LAUNCHES
+    n_stereo = len(pipe.matches)
+
+    n = np.array([int(pipe.corners[k]["valid"].sum()) for k in pipe.fcids])
+    P, F = len(ids), desc.shape[1]
+    print(f"  detect: {1e3 * (t1 - t0) / n_img:.2f} ms per image "
+          f"({t1 - t0:.3f} s, {pipe.counters['detect_batches']} batches of "
+          f"8); valid corners per image min {n.min()}, median "
+          f"{int(np.median(n))}, max {n.max()}; compacted to F={F}")
+    check(CORNERS_MEDIAN[0] <= np.median(n) <= CORNERS_MEDIAN[1],
+          f"median corner count {np.median(n)} outside {CORNERS_MEDIAN}")
+    n_m = sum(len(m["matches"]) for m in pipe.matches.values())
+    n_i = sum(len(m["inliers"]) for m in pipe.matches.values())
+    print(f"  match_stereo: {n_stereo} pairs in {t2 - t1:.3f} s, {n_m} "
+          f"matches, {n_i} epipolar inliers")
+    print(f"  match_pairs: {P} pairs at F={F} in {t3 - t2:.3f} s with the "
+          f"compaction on the card ({P / (t3 - t2):.0f} pairs/s); "
+          f"{int((table >= 0).sum())} mutual matches, {int(count.sum())} "
+          f"kept at {cfg.max_matches_per_pair} per pair")
+    for got, ref in zip(compact, pair_matching.compact_matches_np(
+            table.cpu().numpy(), cfg.max_matches_per_pair)):
+        check(np.array_equal(got.cpu().numpy(), ref),
+              "matches_to_pairs differs from compact_matches_np")
+    check(P == FRONT_FRAMES * (FRONT_FRAMES - 1) * 2,
+          f"worklist has {P} pairs")
+    print(f"  Hamming kernel launches on the path: {launches}")
+    check(launches == 4, f"Hamming launches {launches} != 2 for "
+          f"match_stereo + 2 for match_pairs")
+
+    # stereo inliers against the rendered ground truth
+    close = 0
+    for ((f, _), _), m in pipe.matches.items():
+        inl = m["inliers"]
+        uv_r = pipe.corners[(f, 1)]["uv"][inl[:, 1]]
+        uv_t, front = seq.correspondence(
+            (f, 0), (f, 1), pipe.corners[(f, 0)]["uv"][inl[:, 0]])
+        close += int(((np.linalg.norm(uv_t - uv_r, axis=1) <= GT_PX)
+                      & front).sum())
+    share = close / max(n_i, 1)
+    print(f"  stereo inliers within {GT_PX} px of the true correspondence: "
+          f"{close} of {n_i} ({share:.1%})")
+    check(n_i > 0 and share >= GT_SHARE,
+          f"only {share:.1%} of the stereo inliers on the ground truth")
+
+    # detection and description on the card against the CPU plain path
+    keys = pipe.fcids[:CHECK_IMAGES]
+    imgs = torch.as_tensor(np.stack([seq.images[k] for k in keys]))
+    ref = interop.features_to_numpy(dict(zip(
+        ("uv", "valid", "angles", "desc"),
+        describe.detect_and_describe_batch(imgs, cfg.num_features_per_image))))
+    flips = bits = 0
+    ang_err = 0.0
+    for i, k in enumerate(keys):
+        c = pipe.corners[k]
+        check(np.array_equal(c["uv"], ref["uv"][i])
+              and np.array_equal(c["valid"], ref["valid"][i]),
+              f"corners of {k} differ from the CPU plain path")
+        v = c["valid"]
+        ang_err = max(ang_err, float(np.abs(c["angles"][v]
+                                            - ref["angles"][i][v]).max()))
+        x = c["desc"][v] ^ ref["desc"][i][v]
+        flips += int(np.unpackbits(x.view(np.uint8)).sum())
+        bits += x.size * 32
+    print(f"  {len(keys)} images against the CPU plain path: corners "
+          f"identical, angles within {ang_err:.2e} rad, {flips} of {bits} "
+          f"descriptor bits differ")
+    check(ang_err <= ANGLE_ATOL, f"angles differ by {ang_err}")
+    check(flips <= BIT_FLIP_SHARE * bits, f"{flips} descriptor bits differ")
+
+    # the kernel against its plain version over the whole worklist
+    a = torch.as_tensor(ids[:, 0], device=device)
+    b = torch.as_tensor(ids[:, 1], device=device)
+
+    def kernel_both():
+        return (hamming.best_two_nn(desc, desc, valid, a, b)
+                + hamming.best_two_nn(desc, desc, valid, b, a))
+
+    def plain_both():
+        return (hamming.best_two_nn_reference(desc, desc, valid, a, b)
+                + hamming.best_two_nn_reference(desc, desc, valid, b, a))
+
+    out, ref = kernel_both(), plain_both()
+    torch.cuda.synchronize()
+    max_err = max(int((o - r).abs().max()) for o, r in zip(out, ref))
+    check(all(torch.equal(o, r) for o, r in zip(out, ref)),
+          f"Hamming kernel differs from its plain version (max {max_err})")
+    print(f"  kernel bit-identical to the plain version over all {P} pairs, "
+          f"both directions")
+    lib = int_mm_best_two(desc, valid)
+    for (o_f, o_b), l in zip(zip(out[:3], out[3:]), lib):
+        check(torch.equal(l[a, :, b], o_f) and torch.equal(l[b, :, a], o_b),
+              "the _int_mm form differs from the kernel")
+    del ref, lib
+
+    plain_ms = [time_ms(plain_both, device, reps=1, warmup=0)]
+    ms = [time_ms(kernel_both, device, reps=10, warmup=1)]
+    library_ms = [time_ms(lambda: int_mm_best_two(desc, valid), device,
+                          reps=2, warmup=1)]
+    ms.append(time_ms(kernel_both, device, reps=10, warmup=0))
+    plain_ms.append(time_ms(plain_both, device, reps=1, warmup=0))
+    ms, plain_ms = float(np.mean(ms)), float(np.mean(plain_ms))
+    library_ms = float(library_ms[0])
+    print(f"  all-pairs best-two, both directions: kernel {ms:.4f} ms "
+          f"({P / ms * 1e3:.0f} pairs/s), plain {plain_ms:.4f} ms, "
+          f"_int_mm form {library_ms:.4f} ms over all {n_img}^2 ordered "
+          f"pairs (CUDA events; plain/kernel/library/kernel/plain)")
+    bound_ms, bound_by = hamming_bound_ms(valid, a, b, F)
+    print(f"  bound {bound_ms:.4f} ms ({bound_by}): the kernel at "
+          f"{bound_ms / ms:.1%} of it")
+    return dict(launches=launches, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -245,9 +531,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.load("pba_mega")
+    _build.load_all(["pba_mega", "hamming"])
     build_s = time.perf_counter() - t0
-    print(f"phase 0: built pba_mega in {build_s:.2f} s")
+    print(f"phase 0: built pba_mega and hamming in {build_s:.2f} s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -256,8 +542,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe = synthetic.synth_pba_pipe(seed=SEED, **EUROC)
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
-    max_err, ms, plain_ms = kernel_phase(pipe, device)
+    max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
+    front = front_end_phase(device)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_rj",
@@ -268,6 +555,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "hamming_best_two",
+        "route": "cuda",
+        "source": "photometric_bundle_adjustment_tpu_torch/csrc/hamming.cu",
+        "replaces": "photometric_bundle_adjustment_tpu/ops/hamming.py:34",
+        **front,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,15 @@
-"""Carry the JAX package's problems into the port, through numpy.
+"""Carry the JAX package's problems and features into the port, through
+numpy.
 
 The two packages never import each other.  A caller that holds both (the
 parity tests) turns the JAX arrays into numpy with ``np.asarray`` and
 hands them here, so both packages compute on identical state.  The
 functions read the problem by field name only.
+
+Descriptor stacks: the JAX package holds 256-bit descriptors as (…, 8)
+uint32 words.  torch's uint32 supports few operations, so the port holds
+the same bits as int32 (a numpy ``view``, no copy of the values); the
+CUDA kernel reads them as ``uint32_t``.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.optim import ba
 
@@ -38,3 +45,24 @@ def problem_from_numpy(tree, device) -> ba.BAProblem:
         valid=np.asarray(obs.valid) != 0, fixed_cams=f(tree.fixed_cams),
         lm_valid=f(tree.lm_valid),
     )
+
+
+def descriptors_from_numpy(desc, device="cuda") -> torch.Tensor:
+    """(…, 8) uint32 descriptor words as an int32 tensor with the same
+    bits, on ``device``."""
+    desc = np.ascontiguousarray(np.asarray(desc, np.uint32))
+    return torch.as_tensor(desc.view(np.int32),
+                           device=devices.resolve(device))
+
+
+def descriptors_to_numpy(desc: torch.Tensor) -> np.ndarray:
+    """The port's int32 descriptor words as the JAX package's uint32."""
+    return desc.detach().cpu().numpy().view(np.uint32)
+
+
+def features_to_numpy(feats: dict) -> dict:
+    """Tensors of a feature dict as numpy, desc as uint32: the layout of
+    the JAX package's ``SfmPipeline.corners`` entries."""
+    return {k: (descriptors_to_numpy(v) if k == "desc"
+                else v.detach().cpu().numpy())
+            for k, v in feats.items()}

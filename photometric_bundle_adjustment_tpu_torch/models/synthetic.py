@@ -10,6 +10,13 @@ depths), and a heavy tail of long tracks, as real maps have.  The object
 holds plain Python and numpy only, so it deep-copies and crosses to the
 JAX package unchanged; rendering uses the port's camera models on the CPU
 in float64.
+
+``synth_stereo_sequence`` renders the same room, trajectory and EuRoC
+double-sphere stereo rig with a corner-rich texture (grey blocks in world
+coordinates), for the SfM front end: at 480x752 each image yields about
+EuRoC's 350 to 450 Shi-Tomasi corners.  Its ``correspondence`` maps a pixel
+of one image to the pixel of the same room point in another image, from
+the rendered geometry.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import cameras, se3
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 
@@ -30,10 +38,11 @@ from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 def synth_pba_problem(K: int = 4, L: int = 128, H: int = 64, W: int = 96,
                       seed: int = 0, pose_noise: float = 0.003,
                       depth_noise: float = 0.02, dtype=torch.float32, *,
-                      device):
+                      device="cuda"):
     """Photometric BA problem on a rendered curved (sphere) scene with a
     smooth texture.  Returns (problem, images_flat, H, W, poses_gt,
     inv_depth_gt), with the JAX function's random draws and layout."""
+    device = devices.resolve(device)
     rng = np.random.default_rng(seed)
     model = "pinhole"
 
@@ -145,6 +154,7 @@ class SynthLandmark:
 class SynthCalib:
     intrinsics: np.ndarray      # (2, 8)
     cam_types: list
+    T_i_c: np.ndarray           # (2, 7) camera-to-body poses (left = body)
 
 
 @dataclass
@@ -177,6 +187,40 @@ def _room_depth(o: torch.Tensor, dw: torch.Tensor, center: torch.Tensor):
     return -b + torch.sqrt(b * b - c)
 
 
+def _stereo_rig(n_frames: int, W: int, model: str):
+    """EuRoC's double-sphere stereo rig (intrinsics scaled to width W) on
+    a slow lateral sweep with a little wobble through the room.  Returns
+    (intrinsics (2, 8), poses (2 n_frames, 7) T_w_c in image order
+    (frame i // 2, cam i % 2), T_i_c (2, 7), room centre (3,)); float64."""
+    s = W / 752.0
+    intr = np.stack([np.r_[c[:4] * s, c[4:]] for c in _DS_752])
+    if model == "pinhole":
+        intr[:, 4:] = 0.0
+    elif model != "ds":
+        raise ValueError(f"the synthetic rig supports 'ds' and 'pinhole', "
+                         f"not {model!r}")
+    f64 = torch.float64
+    f = np.arange(n_frames)
+    xi = np.zeros((n_frames, 6))
+    xi[:, 0] = 0.04 * f
+    xi[:, 1] = 0.05 * np.sin(0.3 * f)
+    xi[:, 2] = 0.05 * np.cos(0.2 * f) - 0.05
+    xi[:, 3] = 0.02 * np.sin(0.25 * f)
+    xi[:, 4] = 0.03 * np.sin(0.15 * f)
+    xi[:, 5] = 0.01 * np.cos(0.35 * f)
+    left = se3.exp(torch.as_tensor(xi, dtype=f64))
+    # the right camera sits one baseline to the right of the left (body)
+    T_i_c = torch.stack([
+        torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=f64),
+        se3.exp(torch.tensor([_BASELINE, 0.0, 0.0, 0.007, 0.0006, 0.001],
+                             dtype=f64)),
+    ])
+    right = se3.compose(left, T_i_c[1])
+    poses = torch.stack([left, right], dim=1).reshape(2 * n_frames, 7)
+    center = torch.tensor([0.02 * n_frames, 0.0, 2.0], dtype=f64)
+    return intr, poses, T_i_c.numpy(), center
+
+
 def synth_pba_pipe(K: int = 12, L: int = 48, H: int = 64, W: int = 96,
                    obs_per_lm: int = 3, long_tracks: int = 0, seed: int = 0,
                    model: str = "ds", trans_noise: float = 0.02,
@@ -199,31 +243,10 @@ def synth_pba_pipe(K: int = 12, L: int = 48, H: int = 64, W: int = 96,
         raise ValueError(f"K={K} must be even and >= 4 (stereo pairs)")
     rng = np.random.default_rng(seed)
     f64 = torch.float64
+    intr, poses, T_i_c, center = _stereo_rig(K // 2, W, model)
     s = W / 752.0
-    intr = np.stack([np.r_[c[:4] * s, c[4:]] for c in _DS_752])
-    if model == "pinhole":
-        intr[:, 4:] = 0.0
-    elif model != "ds":
-        raise ValueError(f"synth_pba_pipe supports 'ds' and 'pinhole', not {model!r}")
     intr_t = torch.as_tensor(intr, dtype=f64)
-    n_frames = K // 2
-
-    # trajectory: a slow lateral sweep with a little wobble; the right
-    # camera sits one baseline to the right
-    f = np.arange(n_frames)
-    xi = np.zeros((n_frames, 6))
-    xi[:, 0] = 0.04 * f
-    xi[:, 1] = 0.05 * np.sin(0.3 * f)
-    xi[:, 2] = 0.05 * np.cos(0.2 * f) - 0.05
-    xi[:, 3] = 0.02 * np.sin(0.25 * f)
-    xi[:, 4] = 0.03 * np.sin(0.15 * f)
-    xi[:, 5] = 0.01 * np.cos(0.35 * f)
-    left = se3.exp(torch.as_tensor(xi, dtype=f64))
-    right = se3.compose(left, se3.exp(torch.tensor(
-        [_BASELINE, 0.0, 0.0, 0.007, 0.0006, 0.001], dtype=f64)))
-    poses = torch.stack([left, right], dim=1).reshape(K, 7)   # image order
     keys = [(i // 2, i % 2) for i in range(K)]
-    center = torch.tensor([0.02 * n_frames, 0.0, 2.0], dtype=f64)
 
     ys, xs = torch.meshgrid(torch.arange(H, dtype=f64),
                             torch.arange(W, dtype=f64), indexing="ij")
@@ -287,7 +310,103 @@ def synth_pba_pipe(K: int = 12, L: int = 48, H: int = 64, W: int = 96,
         corners={key: {"uv": np.asarray(v, np.float64).reshape(-1, 2)}
                  for key, v in corners_uv.items()},
         images=images,
-        calib=SynthCalib(intrinsics=intr, cam_types=[model, model]),
+        calib=SynthCalib(intrinsics=intr, cam_types=[model, model],
+                         T_i_c=T_i_c),
         poses_gt={key: gt[i] for i, key in enumerate(keys)},
         inv_depth_gt=inv_depth_gt,
+    )
+
+
+# ---------------------------------------------------------------------------
+# a stereo sequence for the SfM front end
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SynthSequence:
+    images: dict                # {(frame, cam): (H, W) uint8}
+    calib: SynthCalib
+    poses_gt: dict              # {(frame, cam): pose7 T_w_c}
+    center: np.ndarray          # (3,) room centre
+
+    def correspondence(self, src, dst, uv: np.ndarray):
+        """Pixels (N, 2) of image ``src`` mapped to image ``dst`` through
+        the rendered room: unproject, intersect the room sphere, project.
+        Returns (uv_dst (N, 2), in_front (N,) bool)."""
+        f64 = torch.float64
+        model = self.calib.cam_types[0]
+        intr = torch.as_tensor(self.calib.intrinsics, dtype=f64)
+        T_s = torch.as_tensor(self.poses_gt[src], dtype=f64)
+        T_d = torch.as_tensor(self.poses_gt[dst], dtype=f64)
+        d = cameras.unproject_unit(model, intr[src[1]],
+                                   torch.as_tensor(uv, dtype=f64))
+        o = se3.translation(T_s)
+        dw = se3.quat_rotate(se3.rotation(T_s), d)
+        p_w = o + _room_depth(o, dw, torch.as_tensor(self.center))[:, None] * dw
+        p_c = se3.act(se3.inverse(T_d), p_w)
+        uv_d = cameras.project(model, intr[dst[1]], p_c)
+        return uv_d.numpy(), (p_c[:, 2] > 0).numpy()
+
+
+# rays per pixel along each axis of the front-end sequence's rendering
+_SUPERSAMPLE = 2
+
+
+def _block_texture(p: torch.Tensor, cell: float, table: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Piecewise-constant grey blocks of a 3-D grid of ``cell`` metres,
+    each a grey level of ``table`` picked by a hash of its cell, plus a
+    weak copy of the smooth ``_texture`` so that no block is flat."""
+    c = torch.floor(p / cell).to(torch.int64)
+    h = (c[:, 0] * 73856093) ^ (c[:, 1] * 19349663) ^ (c[:, 2] * 83492791)
+    return table[h.remainder(table.shape[0])] + 0.2 * (_texture(p, scale) - 128.0)
+
+
+def synth_stereo_sequence(n_frames: int = 82, H: int = 480, W: int = 752,
+                          seed: int = 0, cell: float | None = None, *,
+                          device="cuda") -> SynthSequence:
+    """``n_frames`` stereo frames (2 n_frames images of H x W) of the
+    ``synth_pba_pipe`` room, trajectory and EuRoC double-sphere rig,
+    rendered with grey blocks of ``cell`` metres (by default 0.95 m at
+    752 px width, scaled so that blocks span the same pixels at any
+    width), anti-aliased over _SUPERSAMPLE^2 rays per pixel.  The block
+    greys come from ``seed``.  Rendering runs in float64 on ``device``."""
+    device = devices.resolve(device)
+    f64 = torch.float64
+    model = "ds"
+    intr, poses, T_i_c, center = _stereo_rig(n_frames, W, model)
+    s = W / 752.0
+    cell = 0.95 / s if cell is None else cell
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.uniform(25.0, 230.0, 4099), dtype=f64,
+                            device=device)
+    intr_t = torch.as_tensor(intr, dtype=f64, device=device)
+    poses_d, center_d = poses.to(device), center.to(device)
+
+    # _SUPERSAMPLE^2 ray offsets around each pixel centre
+    n = _SUPERSAMPLE
+    off = (torch.arange(n, dtype=f64, device=device) + 0.5) / n - 0.5
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=f64, device=device),
+                            torch.arange(W, dtype=f64, device=device),
+                            indexing="ij")
+    oy, ox = torch.meshgrid(off, off, indexing="ij")
+    pix = torch.stack([xs[..., None] + ox.reshape(-1),
+                       ys[..., None] + oy.reshape(-1)], -1).reshape(-1, 2)
+    rays = [cameras.unproject_unit(model, intr_t[c], pix) for c in range(2)]
+    keys = [(i // 2, i % 2) for i in range(2 * n_frames)]
+    images = {}
+    for i, key in enumerate(keys):
+        o = se3.translation(poses_d[i])
+        dw = se3.quat_rotate(se3.rotation(poses_d[i]), rays[key[1]])
+        p_w = o + _room_depth(o, dw, center_d)[:, None] * dw
+        img = _block_texture(p_w, cell, table, s).reshape(H, W, n * n)
+        img = torch.clamp(torch.round(img.mean(-1)), 0, 255)
+        images[key] = img.to(torch.uint8).cpu().numpy()
+    gt = poses.numpy()
+    return SynthSequence(
+        images=images,
+        calib=SynthCalib(intrinsics=intr, cam_types=[model, model],
+                         T_i_c=T_i_c),
+        poses_gt={key: gt[i] for i, key in enumerate(keys)},
+        center=center.numpy(),
     )

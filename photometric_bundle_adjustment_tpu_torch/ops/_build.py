@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -68,3 +69,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     _LIBS[name] = lib
     return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """``load`` every source in ``names``, the nvcc runs started together
+    (one process each); raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = [pool.submit(load, n) for n in names]
+        return {n: f.result() for n, f in zip(names, futures)}

@@ -1,0 +1,183 @@
+"""Brute-force 256-bit Hamming best-two matching over a worklist of pairs.
+
+Port of the Pallas TPU kernel ``photometric_bundle_adjustment_tpu/ops/
+hamming.py`` (``_match_kernel``, launched by ``best_two_nn``).  For every
+row of ``desc1[a[p]]``: the best and second-best Hamming distance and the
+best index against the valid rows of ``desc2[b[p]]``, ties going to the
+lowest index, invalid rows reading as ``BIG``.
+
+Descriptors are (…, 8) words of 256 bits.  The JAX package holds them as
+uint32; the port holds the same bits as int32 (``interop``), because
+torch's uint32 supports few operations, and the kernel reads them as
+``uint32_t``.
+
+Two forms:
+
+- ``best_two_nn`` launches the CUDA kernel of ``csrc/hamming.cu`` on CUDA
+  tensors: one launch for the whole worklist.  On CPU tensors it runs the
+  plain version.  It never falls back from the card.
+- ``best_two_nn_reference``: the popcount distance matrix plus
+  ``best_two_from`` in plain torch, in chunks of pairs.
+
+The TPU kernel masks by a count of valid columns; both forms here take
+the mask itself (see ``csrc/hamming.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from photometric_bundle_adjustment_tpu_torch.ops import _build
+
+BIG = 1 << 20
+WORDS = 8
+# pairs per distance matrix in the plain version (SfmConfig.match_chunk_pairs)
+CHUNK_PAIRS = 32
+
+KERNEL_LAUNCHES = 0
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Population count of 32-bit words held in an int64 tensor with values
+    in [0, 2^32): the bit-parallel reduction of the TPU kernel's
+    ``_popcount``.  int64, because ``>>`` on int32 is arithmetic and would
+    smear the sign bit of words with the top bit set."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """(…, N1, N2) int32 Hamming distances between (…, N1, 8) and
+    (…, N2, 8) int32 descriptor rows (xor plus popcount, word by word)."""
+    u1 = d1.to(torch.int64) & 0xFFFFFFFF
+    u2 = d2.to(torch.int64) & 0xFFFFFFFF
+    acc = None
+    for w in range(WORDS):
+        pc = popcount32(u1[..., :, None, w] ^ u2[..., None, :, w])
+        acc = pc if acc is None else acc + pc
+    return acc.to(torch.int32)
+
+
+def best_two_from(dist: torch.Tensor, dim: int):
+    """(best, second, best_idx) along ``dim`` of a masked distance matrix
+    (invalid entries already ``BIG``), int32.  The index is the lowest
+    column that reaches the minimum, taken as the TPU kernel takes it (the
+    min of the matching column indices), not from ``argmin``."""
+    best = dist.amin(dim)
+    shape = [1] * dist.dim()
+    shape[dim] = dist.shape[dim]
+    col = torch.arange(dist.shape[dim], dtype=torch.int32,
+                       device=dist.device).reshape(shape)
+    big = torch.tensor(BIG, dtype=torch.int32, device=dist.device)
+    bidx = torch.where(dist == best.unsqueeze(dim), col, big).amin(dim)
+    second = torch.where(col == bidx.unsqueeze(dim), big, dist).amin(dim)
+    return best.to(torch.int32), second.to(torch.int32), bidx.to(torch.int32)
+
+
+def _pair_index(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1)
+
+
+def best_two_nn_reference(desc1, desc2, valid2, a, b):
+    """Plain version of the kernel: for each pair p, (best, second, idx)
+    of the rows of ``desc1[a[p]]`` against the valid rows of
+    ``desc2[b[p]]``.  desc1 (I1, N1, 8) int32, desc2 (I2, N2, 8) int32,
+    valid2 (I2, N2) bool, a and b (P,) integer; returns three (P, N1)
+    int32 tensors.  Works in chunks of ``CHUNK_PAIRS`` pairs so that the
+    (chunk, N1, N2) distance matrix stays small."""
+    dev = desc1.device
+    a, b = _pair_index(a, dev), _pair_index(b, dev)
+    N1 = desc1.shape[1]
+    big = torch.tensor(BIG, dtype=torch.int32, device=dev)
+    outs = []
+    for s in range(0, a.shape[0], CHUNK_PAIRS):
+        aa, bb = a[s:s + CHUNK_PAIRS], b[s:s + CHUNK_PAIRS]
+        dist = hamming_matrix(desc1[aa], desc2[bb])
+        outs.append(best_two_from(
+            torch.where(valid2[bb][:, None, :], dist, big), 2))
+    if not outs:
+        empty = torch.empty((0, N1), dtype=torch.int32, device=dev)
+        return empty, empty.clone(), empty.clone()
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _kernel_fn():
+    fn = _build.load("hamming").hamming_best_two
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,                    # d1, N1
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # d2, valid2, N2
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # a, b, P
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs
+            ctypes.c_void_p,                                  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_kernel_inputs(desc1, desc2, valid2, a, b):
+    dev = desc1.device
+    for name, t, dim, dtype in [("desc1", desc1, 3, torch.int32),
+                                ("desc2", desc2, 3, torch.int32),
+                                ("valid2", valid2, 2, torch.bool)]:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, desc1 on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.dim() != dim or (dim == 3 and t.shape[2] != WORDS):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tuple(valid2.shape) != tuple(desc2.shape[:2]):
+        raise ValueError(f"valid2 {tuple(valid2.shape)} does not match desc2 "
+                         f"{tuple(desc2.shape)}")
+    if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
+        raise ValueError("descriptor stacks must be 16-byte aligned")
+    if a.shape != b.shape:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
+    lo, hi = torch.stack([a.min(), b.min(), a.max() - desc1.shape[0],
+                          b.max() - desc2.shape[0]]).reshape(2, 2).tolist()
+    if min(lo) < 0 or max(hi) >= 0:
+        raise ValueError("pair indices out of range of the descriptor stacks")
+
+
+def best_two_nn(desc1, desc2, valid2, a, b):
+    """(best, second, idx), each (P, N1) int32, for the rows of
+    ``desc1[a[p]]`` against ``desc2[b[p]]``; arguments as
+    ``best_two_nn_reference``.
+
+    On CUDA tensors it launches the kernel of ``csrc/hamming.cu`` once for
+    the whole worklist on the current stream (or raises); on CPU tensors it
+    runs the plain version."""
+    global KERNEL_LAUNCHES
+    dev = desc1.device
+    if dev.type == "cpu":
+        return best_two_nn_reference(desc1, desc2, valid2, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"best_two_nn: unsupported device {dev}")
+    a = torch.as_tensor(a, device=dev).to(torch.int32).reshape(-1).contiguous()
+    b = torch.as_tensor(b, device=dev).to(torch.int32).reshape(-1).contiguous()
+    P, N1 = a.shape[0], desc1.shape[1]
+    outs = [torch.empty((P, N1), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    if P == 0:
+        return tuple(outs)
+    _check_kernel_inputs(desc1, desc2, valid2, a, b)
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(desc1.data_ptr(), N1, desc2.data_ptr(), valid2.data_ptr(),
+             desc2.shape[1], a.data_ptr(), b.data_ptr(), P,
+             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+             stream)
+    if err != 0:
+        lib = _build.load("hamming")
+        lib.hamming_error_string.restype = ctypes.c_char_p
+        lib.hamming_error_string.argtypes = [ctypes.c_int]
+        msg = lib.hamming_error_string(err).decode()
+        raise RuntimeError(f"hamming_best_two launch failed: {msg} ({err})")
+    KERNEL_LAUNCHES += 1
+    return tuple(outs)

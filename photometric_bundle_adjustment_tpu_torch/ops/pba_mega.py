@@ -47,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import camera_slab, cameras
 from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
     PATCH_OFFSETS,
@@ -542,7 +543,7 @@ def _check_cfg(cfg: ba.BAConfig):
 
 def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
                      problem_slot: ba.BAProblem, n_images: int,
-                     plan_slot=None, *, device):
+                     plan_slot=None, *, device="cuda"):
     """Megakernel photometric LM solver, chunk-plan family.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)``, with
@@ -557,9 +558,7 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
             "is not ported yet (ROADMAP queue 1, the dense family); call "
             "without plan_slot for the chunk family"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = devices.resolve(device)
     problem_slot = ba.problem_to(problem_slot, device)
     images = images_flat.to(device=device, dtype=torch.float32)
     images = images.reshape(-1, H, W).contiguous()

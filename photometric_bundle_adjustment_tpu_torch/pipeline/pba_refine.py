@@ -14,6 +14,7 @@ import time
 import numpy as np
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 from photometric_bundle_adjustment_tpu_torch.optim import ba
@@ -24,7 +25,7 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def build_photometric_problem(pipe, *, device, dtype=torch.float32):
+def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
     """Construct (problem, images_flat, H, W, cam_list, lm_list) on
     ``device`` from any object with .cameras/.landmarks/.corners/.images/
     .calib.
@@ -32,7 +33,7 @@ def build_photometric_problem(pipe, *, device, dtype=torch.float32):
     Cameras, landmarks and observations keep the JAX package's order, but
     are not padded to power-of-two counts: those buckets only bound JAX
     recompiles, and PyTorch compiles nothing per shape."""
-    device = torch.device(device)
+    device = devices.resolve(device)
     cam_list = sorted(pipe.cameras)
     cam_index = {f: i for i, f in enumerate(cam_list)}
     lm_list = sorted(pipe.landmarks)
@@ -103,7 +104,8 @@ def build_photometric_problem(pipe, *, device, dtype=torch.float32):
 
 def refine_photometric(pipe, max_iterations: int = 20,
                        huber_delta: float = 9.0, levels: int = 3,
-                       sample_bf16: bool = False, log=print, *, device):
+                       sample_bf16: bool = False, log=print, *,
+                       device="cuda"):
     """Coarse-to-fine photometric BA seeded from the map in ``pipe``, on
     ``device``; writes refined poses, depths and per-image affine
     brightness back into ``pipe``.  Returns the final (full-resolution)
@@ -118,9 +120,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
             "sample_bf16 is not ported yet (ROADMAP queue 1, the sample_bf16 "
             "tier); call with sample_bf16=False"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = devices.resolve(device)
     t0 = time.perf_counter()
     problem, images_flat, H, W, cam_list, lm_list = build_photometric_problem(
         pipe, device=device

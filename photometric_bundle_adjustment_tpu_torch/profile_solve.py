@@ -31,6 +31,7 @@ import time
 
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
 from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
     cam_retract,
@@ -46,10 +47,11 @@ EUROC = dict(K=164, L=4800, H=480, W=752, obs_per_lm=5, long_tracks=200)
 SEED = 0
 
 
-def time_ms(fn, device: torch.device, reps: int = 20) -> float:
-    """Mean milliseconds per call of ``fn`` after 3 warm-up calls: CUDA
+def time_ms(fn, device: torch.device, reps: int = 20,
+            warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` after ``warmup`` calls: CUDA
     events on a GPU, the host clock on the CPU."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
@@ -76,11 +78,42 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def profile_run(fn, runs: int, device: torch.device, top: int = 8) -> dict:
+    """``runs`` calls of ``fn`` under ``torch.profiler`` (``fn`` ends in a
+    host sync): the wall time, the device busy time (union of the device
+    kernels' intervals) and its share of the wall, the device kernels per
+    call and the operators with the largest self time on the device (on
+    the host off the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gpu = device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if gpu else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in kernels]) / 1e3
+    key = "self_device_time_total" if gpu else "self_cpu_time_total"
+    ops = sorted(prof.key_averages(), key=lambda e: getattr(e, key),
+                 reverse=True)[:top]
+    return dict(
+        wall_ms=wall_ms,
+        device_busy_ms=busy_ms if gpu else None,
+        device_busy_share=busy_ms / wall_ms if gpu else None,
+        device_kernels_per_run=len(kernels) / runs if gpu else None,
+        top_self_ms={e.key: [e.count, getattr(e, key) / 1e3] for e in ops},
+        top_by=key,
+    )
+
+
 def profile_tries(solve, problem, cfg: ba.BAConfig, tries: int,
                   device: torch.device, top: int = 8) -> dict:
     """``tries`` LM tries at ``problem`` under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     free = ~problem.fixed_cams
     lam = float(cfg.init_lambda)
     _, neq = solve.build(problem, cfg)
@@ -94,29 +127,9 @@ def profile_tries(solve, problem, cfg: ba.BAConfig, tries: int,
         return float(cost_try)                 # the loop's one host sync
 
     one_try()
-    gpu = device.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if gpu else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(tries):
-            one_try()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
-                        for e in kernels]) / 1e3
-    key = "self_device_time_total" if gpu else "self_cpu_time_total"
-    ops = sorted(prof.key_averages(), key=lambda e: getattr(e, key),
-                 reverse=True)[:top]
-    return dict(
-        tries=tries, wall_ms=wall_ms,
-        device_busy_ms=busy_ms if gpu else None,
-        device_busy_share=busy_ms / wall_ms if gpu else None,
-        device_kernels_per_try=len(kernels) / tries if gpu else None,
-        top_self_ms={e.key: [e.count, getattr(e, key) / 1e3] for e in ops},
-        top_by=key,
-    )
+    res = profile_run(one_try, tries, device, top)
+    res["device_kernels_per_try"] = res.pop("device_kernels_per_run")
+    return dict(tries=tries, **res)
 
 
 def main(argv=None) -> dict:
@@ -129,9 +142,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--tries", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but CUDA is not available")
+    device = devices.resolve(args.device)
     gpu = device.type == "cuda"
 
     pipe = synthetic.synth_pba_pipe(

@@ -1,8 +1,10 @@
-"""The port's CUDA megakernel on the card: built from csrc/, held against
-its plain PyTorch version, and its wrapper's guards.  Marked ``cuda``; each
-test skips where no CUDA device is present.  The kernel contracts a*b + c
-into FMAs and the plain version does not, so rows agree to about one ulp
-per operation: atol 1e-4 * max|ref| per row block.
+"""The port's CUDA kernels on the card: built from csrc/, held against
+their plain PyTorch versions, and their wrappers' guards; the front end on
+the card against the CPU plain path.  Marked ``cuda``; each test skips
+where no CUDA device is present.  The megakernel contracts a*b + c into
+FMAs and the plain version does not, so rows agree to about one ulp per
+operation: atol 1e-4 * max|ref| per row block.  The Hamming kernel is
+integer arithmetic and must be bit-identical.
 
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
@@ -16,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from photometric_bundle_adjustment_tpu_torch import interop
+from photometric_bundle_adjustment_tpu_torch.features import pair_matching
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
-from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+from photometric_bundle_adjustment_tpu_torch.ops import hamming, pba_mega
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+    SfmPipeline,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +122,99 @@ def test_refine_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(i_g, i_c, rtol=2e-4)
     np.testing.assert_allclose(c_g, c_c, rtol=5e-3)
     np.testing.assert_allclose(p_g, p_c, atol=1e-4)
+
+
+def _descriptor_stack(kind: str, I=6, F=300, seed=0):
+    """(desc (I, F, 8) uint32, valid (I, F) bool): random, or heavy with
+    exact ties (rows repeated within and across images)."""
+    rng = np.random.default_rng(seed)
+    desc = rng.integers(0, 2**32, (I, F, 8), dtype=np.uint32)
+    valid = rng.random((I, F)) < 0.85
+    if kind == "ties":
+        desc[:, F // 2:] = desc[:, :F - F // 2]
+        desc[1:] = np.where(rng.random((I - 1, F, 1)) < 0.5, desc[:1], desc[1:])
+        desc[2, :20] = desc[2, 0]
+    return desc, valid
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_hamming_kernel_bit_identical(cuda, kind):
+    desc, valid = _descriptor_stack(kind)
+    d = interop.descriptors_from_numpy(desc, cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    ids = np.array([(i, j) for i in range(6) for j in range(6)])
+    before = hamming.KERNEL_LAUNCHES
+    out = hamming.best_two_nn(d, d, v, ids[:, 0], ids[:, 1])
+    torch.cuda.synchronize()
+    assert hamming.KERNEL_LAUNCHES == before + 1
+    ref = hamming.best_two_nn_reference(d, d, v, ids[:, 0], ids[:, 1])
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    if kind == "ties":
+        assert bool((out[0] == out[1]).any())
+    # a single row block of 1 valid column, and none
+    v1 = torch.zeros_like(v)
+    v1[:, 0] = True
+    for mask, second in ((v1, hamming.BIG), (torch.zeros_like(v), hamming.BIG)):
+        o = hamming.best_two_nn(d, d, mask, [0, 1], [2, 3])
+        r = hamming.best_two_nn_reference(d, d, mask, [0, 1], [2, 3])
+        assert all(torch.equal(x, y) for x, y in zip(o, r))
+        assert bool((o[1] == second).all())
+
+
+def test_hamming_wrapper_rejects_bad_inputs(cuda):
+    desc, valid = _descriptor_stack("random")
+    d = interop.descriptors_from_numpy(desc, cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        hamming.best_two_nn(d.long(), d, v, [0], [1])
+    with pytest.raises(ValueError, match="out of range"):
+        hamming.best_two_nn(d, d, v, [0], [6])
+    with pytest.raises(ValueError, match="is on cpu"):
+        hamming.best_two_nn(d, d, v.cpu(), [0], [1])
+    with pytest.raises(ValueError, match="contiguous"):
+        hamming.best_two_nn(d[:, ::2], d, v, [0], [1])
+
+
+def test_front_end_on_card_matches_cpu(cuda):
+    """Detection, description, stereo matching and all-pairs matching on
+    the card against the CPU plain path, on one small sequence: corners
+    identical, descriptors but for a stated share of bits (cos/sin and
+    the moment sums round differently on the card), match lists
+    identical wherever the descriptors are."""
+    seq = synthetic.synth_stereo_sequence(n_frames=4, H=240, W=376,
+                                          device="cpu")
+    pipes = {}
+    for dev in (cuda, "cpu"):
+        p = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
+                        device=dev)
+        p.detect_keypoints()
+        p.match_stereo()
+        pipes[torch.device(dev).type] = p
+    g, c = pipes["cuda"], pipes["cpu"]
+    flips = bits = 0
+    for k in c.fcids:
+        np.testing.assert_array_equal(g.corners[k]["uv"], c.corners[k]["uv"])
+        np.testing.assert_array_equal(g.corners[k]["valid"],
+                                      c.corners[k]["valid"])
+        v = c.corners[k]["valid"]
+        np.testing.assert_allclose(g.corners[k]["angles"][v],
+                                   c.corners[k]["angles"][v], atol=1e-4)
+        x = g.corners[k]["desc"][v] ^ c.corners[k]["desc"][v]
+        flips += int(np.unpackbits(x.view(np.uint8)).sum())
+        bits += x.size * 32
+    assert flips <= 5e-4 * bits, (flips, bits)
+    if flips == 0:
+        for key in c.matches:
+            for f in ("matches", "inliers"):
+                np.testing.assert_array_equal(g.matches[key][f],
+                                              c.matches[key][f])
+    ids = np.array(c._pair_worklist())
+    tables = []
+    for p in (g, c):
+        _, valid, desc, _ = p._stack_features()
+        tables.append(pair_matching.match_pairs(desc, valid, ids[:, 0],
+                                                ids[:, 1]).cpu().numpy())
+    if flips == 0:
+        np.testing.assert_array_equal(tables[0], tables[1])
+    assert (tables[0] >= 0).sum() > 0

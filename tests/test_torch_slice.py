@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from photometric_bundle_adjustment_tpu.pipeline import pba_refine as jrefine
+from photometric_bundle_adjustment_tpu_torch import interop
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
@@ -66,33 +67,55 @@ def test_refine_photometric_matches_jax():
 
 
 def test_port_imports_and_solves_without_jax():
+    """With ``jax`` and the JAX package blocked, every module of the port
+    imports (the package is walked, so later slices are covered too), the
+    photometric solve runs, and so does the front end on the CPU."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["photometric_bundle_adjustment_tpu"] = None
+        import numpy as np
         import torch
-        from photometric_bundle_adjustment_tpu_torch import interop
-        from photometric_bundle_adjustment_tpu_torch.core import camera_slab, cameras, se3
+        import photometric_bundle_adjustment_tpu_torch as port
+        names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                       port.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
-        from photometric_bundle_adjustment_tpu_torch.ops import _build, pba_mega
-        from photometric_bundle_adjustment_tpu_torch.optim import ba, fused, schur_plan
         from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+        from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import SfmPipeline
         torch.set_num_threads(1)
         pipe = synthetic.synth_pba_pipe(K=8, L=32, seed=3)
         res = pba_refine.refine_photometric(pipe, levels=1, max_iterations=2,
                                             log=lambda s: None, device="cpu")
         assert float(res.cost) < float(res.initial_cost), res
+        seq = synthetic.synth_stereo_sequence(n_frames=2, H=120, W=160,
+                                              cell=2.0, device="cpu")
+        sfm = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
+                          device="cpu")
+        sfm.detect_keypoints()
+        sfm.match_stereo()
+        ids = np.array(sfm._pair_worklist())
+        _, valid, desc, _ = sfm._stack_features()
+        table = pair_matching.match_pairs(desc, valid, ids[:, 0], ids[:, 1])
+        pairs, pvalid, count = match.matches_to_pairs(
+            table, sfm.cfg.max_matches_per_pair)
+        assert sum(len(m["matches"]) for m in sfm.matches.values()) > 0
+        assert int(count.sum()) > 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "photometric_bundle_adjustment_tpu"
                or m.startswith("photometric_bundle_adjustment_tpu.")]
         assert all(sys.modules[m] is None for m in bad), bad
-        print("OK", float(res.initial_cost), float(res.cost))
+        print("OK", len(names), float(res.initial_cost), float(res.cost))
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300,
                           cwd=Path(__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+    # every module of the package was imported, this slice's included
+    assert int(proc.stdout.split()[1]) >= 20
 
 
 def test_plain_path_wide_image():
@@ -143,6 +166,46 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         pba_mega.mega_rj(torch.empty((1, 4, 4), device="meta"), meta, meta,
                          meta, meta, meta, meta, meta, meta, 9.0)
+
+
+def _entry_point_calls():
+    """Each public entry point of the port, called without a device."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        SfmPipeline,
+    )
+
+    pipe = synthetic.synth_pba_pipe(K=4, L=8, seed=0)
+    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
+        pipe, device="cpu")
+    return {
+        "refine_photometric": lambda: pba_refine.refine_photometric(
+            pipe, levels=1, log=lambda s: None),
+        "build_photometric_problem": lambda:
+            pba_refine.build_photometric_problem(pipe),
+        "make_mega_solver": lambda: pba_mega.make_mega_solver(
+            "ds", images_flat, H, W, problem, 4),
+        "synth_pba_problem": lambda: synthetic.synth_pba_problem(),
+        "synth_stereo_sequence": lambda: synthetic.synth_stereo_sequence(
+            n_frames=1, H=40, W=60),
+        "SfmPipeline": lambda: SfmPipeline(pipe.images, pipe.calib),
+        "descriptors_from_numpy": lambda: interop.descriptors_from_numpy(
+            np.zeros((2, 8), np.uint32)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "refine_photometric", "build_photometric_problem", "make_mega_solver",
+    "synth_pba_problem", "synth_stereo_sequence", "SfmPipeline",
+    "descriptors_from_numpy"])
+def test_entry_points_default_to_cuda(name):
+    """Without a device argument every entry point runs on the card; on a
+    host without CUDA that request raises, and nothing falls back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the guard is for hosts without it")
+    call = _entry_point_calls()[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
 
 
 def test_profile_solve_on_plain_path():
