@@ -12,7 +12,8 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
   1. the megakernel against its plain PyTorch version on the card, at
      EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
      observations, some warped off the image, one non-finite) and on a
-     small image 8448 pixels wide; both timed with CUDA events;
+     small image 8448 pixels wide; both timed on the device (CUDA
+     graphs of 20 calls), the kernel also through its wrapper;
   2. the photometric path: ``refine_photometric`` on a synthetic
      EuRoC-scale map (3 pyramid levels, 20 iterations, Huber 9), checking
      that the cost falls at every level, that the result is finite, that
@@ -29,18 +30,33 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      worklist, and its launch count; the
      kernel, the plain version and a ``torch._int_mm`` form of the same
      function timed with CUDA events;
-  4. print one JSON line describing each kernel, the card line again, and
+  4. the patch sampler and the two kernel-sampled fused solvers:
+     (a) the sampler kernel against its plain version at EuRoC scale, on
+     the ``imagesort_problem`` layout of phase 2's map at level 0 with the
+     warped level-0 coordinates (some pushed off the image, one at -1e6),
+     timed on the device (CUDA graphs of 20 calls) beside one
+     ``grid_sample`` call, the kernel also through its wrapper; (b)
+     ``make_kernel_fused_solver`` on that map from its initial state (20
+     iterations, Huber 9, the classic loop), checking that the cost falls,
+     the result is finite, the pose error shrank, the first build equals
+     the gather solver's on the card and the sampler launched once per
+     build and residual pass; (c) ``make_kernel_dense_solver`` on
+     ``euroc_scale_pba`` in the slot-major layout (20 iterations, Huber 9,
+     the fused-cost loop), with the same checks but the pose error;
+  5. print one JSON line describing each kernel, the card line again, and
      as the last line ``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result.
 
 Bounds (``bound_ms``) are reckoned from this run's inputs against the
-H100 SXM's published peaks at 700 W: 3.35 TB/s of device memory and
-1,979 TOP/s of dense int8 tensor-core operations.
+H100 SXM's published peaks at 700 W: 3.35 TB/s of device memory, 67
+TFLOP/s of f32 outside the tensor cores and 1,979 TOP/s of dense int8
+tensor-core operations.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -72,6 +88,15 @@ H100_F32_OPS_PER_S = 67e12
 # A1; rounded up
 MEGA_OPS_PER_OBS = 2048
 
+# the patch sampler against its plain version: a few ulps of the image
+# scale (FMA contraction), as the megakernel's rows
+SAMPLE_ATOL = 1e-4      # times max|image|
+# the kernel solvers' first build against the gather solver's on the card:
+# the ROADMAP's parity tolerances (cost rtol, pieces atol x max|ref|, rtol)
+NEQ_TOL = (2e-4, 3e-3, 2e-3)
+NEQ_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "H_pp", "g_c", "g_p", "M",
+             "inv0"]
+
 # the front end at EuRoC V1's size (bench.py's 82 stereo frames)
 FRONT_FRAMES, FRONT_H, FRONT_W = 82, 480, 752
 CORNERS_MEDIAN = (300, 500)
@@ -97,10 +122,51 @@ def gpu_line() -> str:
 
 def reset_counts():
     """Set every kernel's launch count to 0."""
-    from photometric_bundle_adjustment_tpu_torch.ops import hamming, pba_mega
+    from photometric_bundle_adjustment_tpu_torch.ops import (
+        hamming,
+        patch_sample,
+        pba_mega,
+    )
 
     pba_mega.KERNEL_LAUNCHES = 0
     hamming.KERNEL_LAUNCHES = 0
+    patch_sample.KERNEL_LAUNCHES = 0
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, so
+    neither the host's launch rate nor the wrapper's Python enters the
+    time.  ``fn`` must not sync the host (the wrappers and plain versions
+    timed here do not); the launch counts see the captured calls, not the
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # loads the kernel's module before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def timed_pair(kernel, plain) -> tuple[float, float]:
+    """(kernel ms, plain ms), each the mean of two ``graph_ms`` readings
+    taken in the order plain/kernel/kernel/plain."""
+    p = [graph_ms(plain)]
+    k = [graph_ms(kernel), graph_ms(kernel)]
+    p.append(graph_ms(plain))
+    return float(np.mean(k)), float(np.mean(p))
 
 
 def pose_errors(cameras: dict, poses_gt: dict, se3):
@@ -230,13 +296,13 @@ def kernel_phase(pipe, device):
     torch.cuda.synchronize()
     max_err = compare_payloads(out, ref, solve.images, "EuRoC scale")
 
-    plain_ms = [time_ms(lambda: pba_mega.mega_rj_reference(*args), device)]
-    ms = [time_ms(lambda: pba_mega.mega_rj(*args), device)]
-    ms.append(time_ms(lambda: pba_mega.mega_rj(*args), device))
-    plain_ms.append(time_ms(lambda: pba_mega.mega_rj_reference(*args), device))
-    ms, plain_ms = float(np.mean(ms)), float(np.mean(plain_ms))
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per build "
-          f"(mean of 2 x 20 calls, plain/kernel/kernel/plain)")
+    ms, plain_ms = timed_pair(lambda: pba_mega.mega_rj(*args),
+                              lambda: pba_mega.mega_rj_reference(*args))
+    wrapper_ms = time_ms(lambda: pba_mega.mega_rj(*args), device)
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per build on the "
+          f"device (CUDA graphs of 20 calls, plain/kernel/kernel/plain); "
+          f"through the wrapper {wrapper_ms:.4f} ms per call (20 calls "
+          f"between CUDA events: the host's launch rate)")
     bound_ms = mega_bound_ms(args)
     print(f"  bound {bound_ms:.4f} ms: the kernel at "
           f"{bound_ms / ms:.1%} of it")
@@ -307,6 +373,224 @@ def slice_phase(pipe, device, se3):
     check(launches == expected,
           f"kernel launches {launches} != builds {expected}")
     return launches
+
+
+def sample_bound_ms(images, ux, uy, iog, cnt) -> float:
+    """Least time of one sampler call on these inputs: the bytes it must
+    move (ux and uy of each valid observation, each image pixel its taps
+    touch and the group tables read once, 3 x 8 f32 per row written once)
+    over the card's memory rate.  Its f32 operations (about 20 per point)
+    take far less, so it is bytes-bound."""
+    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
+
+    K, H, W = images.shape
+    Opad = ux.shape[1]
+    G = ps.GROUP
+    lane = torch.arange(Opad, device=ux.device) % G
+    ok = lane < cnt.long().repeat_interleave(G)
+    n_obs = int(ok.sum())
+    img = iog.long().repeat_interleave(G)[ok]
+    xs, ys = ux[:, ok], uy[:, ok]
+    x0 = torch.floor(xs.clamp(0, W - 1.001)).long()
+    y0 = torch.floor(ys.clamp(0, H - 1.001)).long()
+    taps = torch.cat([((img * H + y0 + dy) * W + x0 + dx).reshape(-1)
+                      for dy in (0, 1) for dx in (0, 1)])
+    n_pix = int(torch.unique(taps).numel())
+    nbytes = 4 * (2 * ps.P * n_obs + n_pix + 2 * iog.numel()) \
+        + 4 * 3 * ps.P * Opad
+    ops = 20 * ps.P * n_obs
+    check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
+          "sampler bound is not bytes")
+    print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
+          f"{8 * ps.P} B, {n_pix} image pixels, output "
+          f"{12 * ps.P * Opad / 1e6:.2f} MB) at 3.35 TB/s")
+    return 1e3 * nbytes / H100_BYTES_PER_S
+
+
+def grid_sample_values(images, ux, uy, iog):
+    """The value (not the gradient) of the sampler through one
+    ``torch.nn.functional.grid_sample`` call: the stack as one tall image,
+    coordinates clamped to their image and stacked, ``align_corners=True``
+    and border padding.  Returns (call, values); ``call`` times the one
+    library call alone.  A yardstick; the port never calls it."""
+    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
+
+    K, H, W = images.shape
+    img = iog.long().repeat_interleave(ps.GROUP)[None, :]
+    x = ux.clamp(0, W - 1.001)
+    y = img * H + uy.clamp(0, H - 1.001)
+    grid = torch.stack([2 * x / (W - 1) - 1, 2 * y / (K * H - 1) - 1],
+                       dim=-1)[None]
+    tall = images.reshape(1, 1, K * H, W)
+
+    def call():
+        return torch.nn.functional.grid_sample(
+            tall, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    return call, call()[0, 0]
+
+
+def check_first_build(solve, solve_ref, problem, plan, cfg, label: str):
+    """The kernel solver's build against the gather solver's on the card,
+    at the ROADMAP's parity tolerances."""
+    cost, neq = solve.build(problem, plan, cfg)
+    ref_cost, ref_neq = solve_ref.build(problem, plan, cfg)
+    rel = abs(float(cost) - float(ref_cost)) / abs(float(ref_cost))
+    check(rel <= NEQ_TOL[0], f"{label}: first build cost rel err {rel}")
+    worst = []
+    for name, a, b in zip(NEQ_NAMES, neq, ref_neq):
+        scale = max(float(b.abs().max()), 1e-30)
+        bound = NEQ_TOL[1] * scale + NEQ_TOL[2] * b.abs()
+        ratio = float(((a - b).abs() / bound).max())
+        check(ratio <= 1.0, f"{label}: {name} beyond the parity tolerance "
+              f"({ratio:.3f} of bound)")
+        worst.append(f"{name} {ratio:.1e}")
+    print(f"  {label}: first build = the gather solver's on the card (cost "
+          f"rel {rel:.2e}; pieces at this share of their bound: "
+          f"{', '.join(worst)})")
+
+
+def run_solver(solve, problem, plan, cfg, label: str):
+    """One counted solve: returns (problem, result, launches, seconds)."""
+    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    p, res = solve(problem, plan, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ps.KERNEL_LAUNCHES
+    init, cost = float(res.initial_cost), float(res.cost)
+    print(f"  {label}: cost {init:.6e} -> {cost:.6e}, {res.iterations} "
+          f"iterations, {res.tries} tries, {res.builds} builds, "
+          f"{res.residual_passes} residual passes in {secs:.3f} s: "
+          f"{res.iterations / secs:.2f} LM it/s, {res.tries / secs:.2f} "
+          f"tries/s; sampler launches {launches}")
+    check(math.isfinite(cost), f"{label}: non-finite cost")
+    check(cost < init, f"{label}: cost did not fall")
+    check(bool(torch.isfinite(p.cam_states.pose).all()
+               and torch.isfinite(p.inv_depth).all()),
+          f"{label}: non-finite state")
+    check(launches == res.builds + res.residual_passes,
+          f"{label}: sampler launches {launches} != builds {res.builds} + "
+          f"residual passes {res.residual_passes}")
+    return p, res, launches, secs
+
+
+def sampler_phase(pipe, device, se3):
+    """Phase 4: the patch sampler at EuRoC scale and the two
+    kernel-sampled fused solvers.  Returns the sampler's JSON fields."""
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        photometric_ba as pba,
+    )
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
+    from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        SEED,
+        time_ms,
+    )
+
+    problem, images_flat, H, W, cam_list, _ = \
+        pba_refine.build_photometric_problem(pipe, device=device)
+    K = problem.cam_states.pose.shape[0]
+    model = pipe.calib.cam_types[0]
+    p_img, iog, cnt = pba.imagesort_problem(problem, K)
+    solve_k = pba.make_kernel_fused_solver(model, images_flat, H, W, iog,
+                                           cnt, device=device)
+    images, rj_fn = solve_k.images, solve_k.fns[1]
+
+    # (a) the kernel against its plain version on the warped coordinates
+    o = p_img.obs
+    Og = len(iog) * ps.GROUP
+    ux, uy, _ = rj_fn.warp(ba.take_rows(p_img.cam_states, o.anchor_cam),
+                           ba.take_rows(p_img.cam_states, o.target_cam),
+                           p_img.inv_depth[o.landmark], o.aux)
+    fin = torch.isfinite(ux) & torch.isfinite(uy)
+    ux = torch.where(fin, ux, torch.full_like(ux, -1e6)).contiguous()
+    uy = torch.where(fin, uy, torch.full_like(uy, -1e6)).contiguous()
+    cols = torch.arange(0, Og, 97, device=device)
+    ux[:, cols[0::3]] -= 0.8 * W
+    uy[:, cols[1::3]] += 0.7 * H
+    ux[:, cols[2::3]] += 1.3 * W
+    ux[:, 5] = -1e6
+    uy[:, 5] = -1e6
+    iog_t, cnt_t = (torch.as_tensor(x, device=device) for x in (iog, cnt))
+    args = (images, ux, uy, iog_t, cnt_t, (H, W), True)
+    print(f"phase 4: patch sampler vs plain at {K} images of {H}x{W}, "
+          f"{int(cnt.sum())} observations in {Og} rows ({len(iog)} groups)")
+    out = ps.sample_patches_grouped(*args)
+    ref = ps.sample_patches_reference(*args)
+    torch.cuda.synchronize()
+    scale = float(images.abs().max())
+    max_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    check(max_err <= SAMPLE_ATOL * scale,
+          f"sampler max err {max_err} > {SAMPLE_ATOL} * {scale}")
+    pad = (torch.arange(Og, device=device) % ps.GROUP) >= \
+        cnt_t.long().repeat_interleave(ps.GROUP)
+    check(all(bool((a[:, pad] == 0).all()) for a in out),
+          "sampler padding slots are not zero")
+    print(f"  max|err| {max_err:.3e} (bound {SAMPLE_ATOL * scale:.3e}); "
+          f"{int(pad.sum())} padding slots exactly zero")
+    ms, plain_ms = timed_pair(lambda: ps.sample_patches_grouped(*args),
+                              lambda: ps.sample_patches_reference(*args))
+    wrapper_ms = time_ms(lambda: ps.sample_patches_grouped(*args), device)
+    call, lib_val = grid_sample_values(images, ux, uy, iog_t)
+    lib_err = float((lib_val - out[0])[:, ~pad].abs().max())
+    check(lib_err <= 1e-2 * scale, f"grid_sample differs by {lib_err}")
+    library_ms = graph_ms(call)
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call on the "
+          f"device (CUDA graphs of 20 calls, plain/kernel/kernel/plain); one "
+          f"grid_sample call {library_ms:.4f} ms (a graph of 20) for the "
+          f"value alone, no gradient (within {lib_err:.2e} of the kernel's "
+          f"value); through the wrapper {wrapper_ms:.4f} ms per call (20 "
+          f"calls between CUDA events: the host's launch rate)")
+    bound_ms = sample_bound_ms(images, ux, uy, iog_t, cnt_t)
+    print(f"  bound {bound_ms:.4f} ms: the kernel at {bound_ms / ms:.1%} "
+          f"of it")
+
+    # (b) make_kernel_fused_solver on the map, classic loop
+    cfg = ba.BAConfig(max_iterations=MAX_ITERATIONS, huber_delta=HUBER)
+    plan = fused.plan_for_problem(p_img, pow2_buckets=False)
+    solve_g = pba.make_fused_solver(model, images_flat, H, W, device=device)
+    check_first_build(solve_k, solve_g, p_img, plan, cfg, "kernel_fused")
+    err0 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
+    p, _, launches_b, _ = run_solver(solve_k, p_img, plan, cfg,
+                                     f"kernel_fused ({K} images of {H}x{W}, "
+                                     f"{Og} rows, classic loop)")
+    poses = p.cam_states.pose.double().cpu().numpy()
+    err1 = pose_errors(dict(zip(cam_list, poses)), pipe.poses_gt, se3)
+    print(f"  kernel_fused pose error vs ground truth: translation "
+          f"{err0[0]:.5f} -> {err1[0]:.5f} m, rotation {err0[1]:.6f} -> "
+          f"{err1[1]:.6f} rad")
+    check(err1[0] < err0[0] and err1[1] < err0[1],
+          "kernel_fused: pose error against ground truth did not shrink")
+
+    # (c) make_kernel_dense_solver on the uniform EuRoC-scale problem
+    t0 = time.perf_counter()
+    prob_u, imgs_u, Hu, Wu = synthetic.euroc_scale_pba(seed=SEED,
+                                                       device=device)
+    prob_d, plan_d = fused.densify_problem(prob_u, pow2_buckets=False)
+    Ku = prob_u.cam_states.pose.shape[0]
+    solve_d = pba.make_kernel_dense_solver("pinhole", imgs_u, Hu, Wu, prob_d,
+                                           Ku, device=device)
+    S = plan_d.lm_cam.shape[0]
+    print(f"  euroc_scale_pba: {Ku} images of {Hu}x{Wu}, "
+          f"{int((prob_u.obs.valid != 0).sum())} observations in {S} x "
+          f"{prob_u.inv_depth.shape[0]} slots (set up in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    cfg_d = cfg._replace(cost_from_build=True)
+    solve_gd = pba.make_fused_solver("pinhole", imgs_u, Hu, Wu, device=device)
+    check_first_build(solve_d, solve_gd, prob_d, plan_d, cfg_d,
+                      "kernel_dense")
+    _, _, launches_c, _ = run_solver(solve_d, prob_d, plan_d, cfg_d,
+                                     "kernel_dense (fused-cost loop)")
+    return dict(launches=launches_b + launches_c, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms)
 
 
 def int_mm_best_two(desc, valid):
@@ -531,9 +815,10 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.load_all(["pba_mega", "hamming"])
+    _build.load_all(["pba_mega", "hamming", "patch_sample"])
     build_s = time.perf_counter() - t0
-    print(f"phase 0: built pba_mega and hamming in {build_s:.2f} s")
+    print(f"phase 0: built pba_mega, hamming and patch_sample in "
+          f"{build_s:.2f} s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -541,10 +826,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pipe = synthetic.synth_pba_pipe(seed=SEED, **EUROC)
+    pipe0 = copy.deepcopy(pipe)       # phase 4 starts from the initial map
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
     max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
     front = front_end_phase(device)
+    sampler = sampler_phase(pipe0, device, se3)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_rj",
@@ -564,6 +851,12 @@ def main() -> int:
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/hamming.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/hamming.py:34",
         **front,
+    }, {
+        "name": "patch_sample",
+        "route": "cuda",
+        "source": "photometric_bundle_adjustment_tpu_torch/csrc/patch_sample.cu",
+        "replaces": "photometric_bundle_adjustment_tpu/ops/patch_sample.py:61",
+        **sampler,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,11 @@
 ``synth_pba_problem`` ports the JAX package's sphere-and-texture problem
 (``photometric_bundle_adjustment_tpu/models/synthetic.py``) to tensors.
 
+``euroc_scale_pba`` is the port's copy of ``build_euroc_scale_pba`` of the
+JAX package's ``scripts/profile_pba.py``: EuRoC V1's image count and size
+with uniform tracks (every landmark seen by the next 5 images), the
+workload of the JAX package's dense photometric benchmark.
+
 ``synth_pba_pipe`` builds a map-like object that ``refine_photometric`` of
 both packages accepts: stereo image pairs rendered from inside a textured
 sphere ("room"), ground-truth poses, a perturbed map (poses and inverse
@@ -124,6 +129,63 @@ def synth_pba_problem(K: int = 4, L: int = 128, H: int = 64, W: int = 96,
         fixed_cams=np.arange(K) < 2,
     )
     return problem, images_flat, H, W, poses_gt, inv_depth_gt
+
+
+def euroc_scale_pba(K: int = 164, L: int = 4800, obs_per_lm: int = 5,
+                    H: int = 480, W: int = 752, seed: int = 0,
+                    dtype=torch.float32, *, device="cuda"):
+    """A photometric problem at EuRoC scale with a uniform observation
+    graph: K random images (uniform noise; content is irrelevant for
+    throughput), pinhole intrinsics, a forward trajectory with small
+    rotations, L landmarks anchored at random images and seen by the next
+    ``obs_per_lm`` images.  Frames 0 and 1 are fixed.  The numpy draws are
+    those of the JAX package's ``build_euroc_scale_pba``.  Returns
+    (problem, images_flat, H, W) on ``device``."""
+    device = devices.resolve(device)
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 255, (K, H, W)).astype(np.float32)
+    images_flat = torch.as_tensor(imgs.reshape(-1), device=device).to(dtype)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    intr = t([458.0, 457.0, W / 2, H / 2, 0, 0, 0, 0])
+    xi = np.zeros((K, 6))
+    xi[:, 0] = np.arange(K) * 0.05
+    xi[:, 1:3] = rng.normal(0, 0.02, (K, 2))
+    xi[:, 3:] = rng.normal(0, 0.01, (K, 3))
+    poses = se3.exp(t(xi))
+
+    anchor_of_lm = rng.integers(0, K - 8, L)
+    uv_ref = np.stack([rng.uniform(8, W - 8, L), rng.uniform(8, H - 8, L)], -1)
+    inv_depth = 1.0 / rng.uniform(2.0, 12.0, L)
+    # sliding-window targets: each landmark seen in the next few frames
+    j = np.arange(1, obs_per_lm + 1)[:, None]
+    obs_a = np.tile(anchor_of_lm, obs_per_lm)
+    obs_c = np.minimum(anchor_of_lm[None, :] + j, K - 1).reshape(-1)
+    obs_l = np.tile(np.arange(L), obs_per_lm)
+    O = obs_a.shape[0]
+
+    ref_patch = pba.extract_ref_patches(
+        images_flat, torch.as_tensor(anchor_of_lm, device=device), t(uv_ref),
+        H, W)
+    obs_l_t = torch.as_tensor(obs_l, device=device)
+    problem = pba.build_problem(
+        poses=poses,
+        affine=torch.zeros((K, 2), dtype=dtype, device=device),
+        inv_depth=t(inv_depth),
+        anchor_cam=obs_a,
+        target_cam=obs_c,
+        landmark=obs_l,
+        uv_ref=t(uv_ref)[obs_l_t],
+        ref_patch=ref_patch[obs_l_t],
+        target_img=obs_c,
+        intr_ref=intr.repeat(O, 1),
+        intr_target=intr.repeat(O, 1),
+        valid=np.ones(O, bool),
+        fixed_cams=np.arange(K) < 2,
+    )
+    return problem, images_flat, H, W
 
 
 # ---------------------------------------------------------------------------

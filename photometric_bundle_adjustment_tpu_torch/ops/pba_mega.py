@@ -39,7 +39,6 @@ kernel's 24x128 window clamp is a TPU artefact and is not ported.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 from typing import NamedTuple
@@ -56,9 +55,14 @@ from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
 )
 from photometric_bundle_adjustment_tpu_torch.ops import _build
 from photometric_bundle_adjustment_tpu_torch.optim import ba
-from photometric_bundle_adjustment_tpu_torch.optim.fused import _chunk_sum
+from photometric_bundle_adjustment_tpu_torch.optim.fused import (
+    _chunk_sum,
+    _one_hot,
+    full_f32,
+    plan_to,
+    solve_lam,
+)
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
-    ChunkPlan,
     SchurPlan,
     build_schur_plan,
 )
@@ -158,21 +162,6 @@ def build_chunk_mega_plan(problem: ba.BAProblem, n_images: int):
     )
     meta = dict(order=order, take=take, Og=Og, zrow=zrow)
     return cplan, meta, (an_g, tn_g, lm_g, iog, cnt)
-
-
-def plan_to(cplan: SchurPlan, device) -> SchurPlan:
-    """The numpy SchurPlan as int64 tensors on ``device``."""
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.int64), device=device)
-
-    def chunk(c):
-        return ChunkPlan(t(c.gidx), t(c.rows))
-
-    return SchurPlan(
-        pg=t(cplan.pg), cc_rows4=t(cplan.cc_rows4), lm=chunk(cplan.lm),
-        gc_a=chunk(cplan.gc_a), gc_t=chunk(cplan.gc_t),
-        lm_cam=t(cplan.lm_cam), anchor_cam_of_lm=t(cplan.anchor_cam_of_lm),
-    )
 
 
 def make_mega_consts(model: str, problem: ba.BAProblem, meta,
@@ -428,11 +417,6 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
 # ---------------------------------------------------------------------------
 
 
-def _one_hot(idx, K: int, dtype):
-    """one_hot with index K (the plans' dummy) mapping to a zero row."""
-    return torch.nn.functional.one_hot(idx, K + 1)[..., :K].to(dtype)
-
-
 def build_mega_chunk(model: str, images, problem: ba.BAProblem,
                      consts: MegaConsts, cplan: SchurPlan, cfg: ba.BAConfig):
     """Megakernel + chunk-plan assembly.  Returns ``(cost, neq)`` with
@@ -493,46 +477,6 @@ def build_mega_chunk(model: str, images, problem: ba.BAProblem,
     return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
 
 
-def solve_lam(neq, lam: float, free_cam_mask: torch.Tensor,
-              cfg: ba.BAConfig):
-    """Damped reduced-camera solve + inverse-depth back-substitution.
-
-    Where the damped system is not positive definite (``cholesky_ex``
-    reports it), the deltas are NaN, so the trial cost is NaN and the LM
-    loop rejects the try, as the reference's NaN Cholesky does."""
-    H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0 = neq
-    KC = H_cc_mat.shape[0]
-    K = free_cam_mask.shape[0]
-    C_ = KC // K
-    dtype = g_c.dtype
-    d_cc = torch.clamp(torch.diagonal(H_cc_mat), 1e-12, 1e32)
-    S = H_cc_mat + torch.diag(lam * d_cc) - S_corr0 / (1.0 + lam)
-    rhs = -(g_c.reshape(-1) - rhs_corr0 / (1.0 + lam))
-    mask = free_cam_mask.to(dtype).repeat_interleave(C_)
-    S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
-    chol, info = torch.linalg.cholesky_ex(S)
-    delta_c = torch.cholesky_solve((rhs * mask)[:, None], chol)[:, 0] * mask
-    delta_c = torch.where(info == 0, delta_c, torch.full_like(delta_c, math.nan))
-    delta_p = -(g_p + M @ delta_c) * inv0 / (1.0 + lam)
-    return delta_c.reshape(K, C_), delta_p
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """Full-f32 matmuls: the Schur Gram and the Cholesky must not run in
-    TF32 (reduced precision perturbs the solve through the ill-conditioned
-    reduced system)."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def _check_cfg(cfg: ba.BAConfig):
     if cfg.sample_bf16:
         raise NotImplementedError(
@@ -568,11 +512,11 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
 
     def build(problem, cfg: ba.BAConfig):
         _check_cfg(cfg)
-        with _full_f32():
+        with full_f32():
             return build_mega_chunk(model, images, problem, consts, cplan, cfg)
 
     def _solve_lam(neq, lam, free, cfg: ba.BAConfig):
-        with _full_f32():
+        with full_f32():
             return solve_lam(neq, lam, free, cfg)
 
     def apply_step(prob, dc, dp):

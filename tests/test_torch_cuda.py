@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card: built from csrc/, held against
-their plain PyTorch versions, and their wrappers' guards; the front end on
-the card against the CPU plain path.  Marked ``cuda``; each test skips
-where no CUDA device is present.  The megakernel contracts a*b + c into
-FMAs and the plain version does not, so rows agree to about one ulp per
-operation: atol 1e-4 * max|ref| per row block.  The Hamming kernel is
-integer arithmetic and must be bit-identical.
+their plain PyTorch versions, and their wrappers' guards; the front end
+and the kernel-sampled photometric solvers on the card against the CPU
+plain path.  Marked ``cuda``; each test skips where no CUDA device is
+present.  The megakernel and the patch sampler contract a*b + c into FMAs
+and the plain versions do not, so they agree to about one ulp per
+operation: atol 1e-4 * max|ref| (per row block for the megakernel).  The
+Hamming kernel is integer arithmetic and must be bit-identical.
 
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
@@ -21,7 +22,10 @@ import torch
 from photometric_bundle_adjustment_tpu_torch import interop
 from photometric_bundle_adjustment_tpu_torch.features import pair_matching
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
+from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import hamming, pba_mega
+from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
+from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
     SfmPipeline,
@@ -218,3 +222,92 @@ def test_front_end_on_card_matches_cpu(cuda):
     if flips == 0:
         np.testing.assert_array_equal(tables[0], tables[1])
     assert (tables[0] >= 0).sum() > 0
+
+
+def _sampler_inputs(device, H=64, W=96, Kimg=3, counts=(128, 70, 5), seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    Opad = len(counts) * ps.GROUP
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(device)
+
+    images = rand(Kimg, H, W, hi=255.0)
+    ux = rand(ps.P, Opad, lo=-5.0, hi=W + 4.0)
+    uy = rand(ps.P, Opad, lo=-5.0, hi=H + 4.0)
+    ux[:, 11] = -1e6                         # a non-finite projection
+    uy[:, 11] = -1e6
+    iog = torch.tensor([i % Kimg for i in range(len(counts))],
+                       dtype=torch.int32, device=device)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=device)
+    return images, ux, uy, iog, cnt, (H, W)
+
+
+@pytest.mark.parametrize("want_grads", [True, False])
+def test_patch_sample_kernel_matches_plain_version(cuda, want_grads):
+    args = _sampler_inputs(cuda)
+    before = ps.KERNEL_LAUNCHES
+    out = ps.sample_patches_grouped(*args, want_grads)
+    torch.cuda.synchronize()
+    assert ps.KERNEL_LAUNCHES == before + 1
+    ref = ps.sample_patches_reference(*args, want_grads)
+    scale = float(args[0].abs().max())
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4 * scale)
+    cnt = args[4].long().repeat_interleave(ps.GROUP)
+    pad = (torch.arange(out[0].shape[1], device=cuda) % ps.GROUP) >= cnt
+    assert all(bool((a[:, pad] == 0).all()) for a in out)
+    if not want_grads:
+        assert not out[1].any() and not out[2].any()
+
+
+def test_patch_sample_wrapper_rejects_bad_inputs(cuda):
+    images, ux, uy, iog, cnt, HW = _sampler_inputs(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ps.sample_patches_grouped(images, ux.double(), uy, iog, cnt, HW)
+    with pytest.raises(ValueError, match="contiguous"):
+        ps.sample_patches_grouped(images, ux.T.contiguous().T, uy, iog, cnt,
+                                  HW)
+    with pytest.raises(ValueError, match="multiple"):
+        ps.sample_patches_grouped(images, ux[:, :100], uy[:, :100], iog, cnt,
+                                  HW)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ps.sample_patches_grouped(images, ux, uy, iog.cpu(), cnt, HW)
+    with pytest.raises(ValueError, match="images3d must be"):
+        ps.sample_patches_grouped(images, ux, uy, iog, cnt, (32, 96))
+
+
+@pytest.mark.parametrize("solver", ["kernel_fused", "kernel_dense"])
+def test_kernel_solvers_on_card_match_cpu(cuda, solver):
+    """Both kernel-sampled solvers on the card against the CPU plain path
+    on one small problem; every build and residual pass on the card
+    launches the sampler once."""
+    problem, images, H, W = synthetic.euroc_scale_pba(
+        K=12, L=96, obs_per_lm=3, H=64, W=96, device="cpu")
+    cfg = ba.BAConfig(max_iterations=5, huber_delta=9.0,
+                      cost_from_build=solver == "kernel_dense")
+    if solver == "kernel_fused":
+        problem, iog, cnt = pba.imagesort_problem(problem, 12)
+        plan = fused.plan_for_problem(problem)
+    else:
+        problem, plan = fused.densify_problem(problem)
+    runs = []
+    for dev in (cuda, "cpu"):
+        if solver == "kernel_fused":
+            solve = pba.make_kernel_fused_solver("pinhole", images, H, W, iog,
+                                                 cnt, device=dev)
+        else:
+            solve = pba.make_kernel_dense_solver("pinhole", images, H, W,
+                                                 problem, 12, device=dev)
+        before = ps.KERNEL_LAUNCHES
+        p, res = solve(problem, plan, cfg)
+        launches = ps.KERNEL_LAUNCHES - before
+        runs.append((float(res.initial_cost), float(res.cost),
+                     p.cam_states.pose.cpu().numpy()))
+        if dev == cuda:
+            assert launches == res.builds + res.residual_passes > 0
+    (i_g, c_g, p_g), (i_c, c_c, p_c) = runs
+    np.testing.assert_allclose(i_g, i_c, rtol=2e-4)
+    np.testing.assert_allclose(c_g, c_c, rtol=5e-3)
+    np.testing.assert_allclose(p_g, p_c, atol=1e-4)
+    assert c_g < i_g

@@ -85,11 +85,26 @@ def test_port_imports_and_solves_without_jax():
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
         from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
         from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import SfmPipeline
+        from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
+        from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
         torch.set_num_threads(1)
         pipe = synthetic.synth_pba_pipe(K=8, L=32, seed=3)
         res = pba_refine.refine_photometric(pipe, levels=1, max_iterations=2,
                                             log=lambda s: None, device="cpu")
         assert float(res.cost) < float(res.initial_cost), res
+        prob, imgs, H, W = synthetic.euroc_scale_pba(
+            K=12, L=48, obs_per_lm=3, H=64, W=96, device="cpu")
+        cfg = ba.BAConfig(max_iterations=2, huber_delta=9.0)
+        p2, iog, cnt = pba.imagesort_problem(prob, 12)
+        solve = pba.make_kernel_fused_solver("pinhole", imgs, H, W, iog, cnt,
+                                             device="cpu")
+        _, r = solve(p2, fused.plan_for_problem(p2), cfg)
+        assert float(r.cost) < float(r.initial_cost), r
+        p3, plan3 = fused.densify_problem(prob)
+        solve = pba.make_kernel_dense_solver("pinhole", imgs, H, W, p3, 12,
+                                             device="cpu")
+        _, r = solve(p3, plan3, cfg._replace(cost_from_build=True))
+        assert float(r.cost) < float(r.initial_cost), r
         seq = synthetic.synth_stereo_sequence(n_frames=2, H=120, W=160,
                                               cell=2.0, device="cpu")
         sfm = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
@@ -177,7 +192,20 @@ def _entry_point_calls():
     pipe = synthetic.synth_pba_pipe(K=4, L=8, seed=0)
     problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
         pipe, device="cpu")
+    from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
+    from photometric_bundle_adjustment_tpu_torch.optim import fused
+
+    prob_s, iog, cnt = pba.imagesort_problem(problem, 4)
+    prob_d, _ = fused.densify_problem(problem)
     return {
+        "make_fused_solver": lambda: pba.make_fused_solver(
+            "ds", images_flat, H, W),
+        "make_kernel_fused_solver": lambda: pba.make_kernel_fused_solver(
+            "ds", images_flat, H, W, iog, cnt),
+        "make_kernel_dense_solver": lambda: pba.make_kernel_dense_solver(
+            "ds", images_flat, H, W, prob_d, 4),
+        "euroc_scale_pba": lambda: synthetic.euroc_scale_pba(
+            K=12, L=8, H=32, W=48),
         "refine_photometric": lambda: pba_refine.refine_photometric(
             pipe, levels=1, log=lambda s: None),
         "build_photometric_problem": lambda:
@@ -194,7 +222,8 @@ def _entry_point_calls():
 
 
 @pytest.mark.parametrize("name", [
-    "refine_photometric", "build_photometric_problem", "make_mega_solver",
+    "make_fused_solver", "make_kernel_fused_solver",
+    "make_kernel_dense_solver", "euroc_scale_pba", "refine_photometric", "build_photometric_problem", "make_mega_solver",
     "synth_pba_problem", "synth_stereo_sequence", "SfmPipeline",
     "descriptors_from_numpy"])
 def test_entry_points_default_to_cuda(name):
@@ -223,4 +252,23 @@ def test_profile_solve_on_plain_path():
               "wall_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert res["top_self_ms"] and res["top_by"] == "self_cpu_time_total"
+    assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
+
+
+@pytest.mark.parametrize("solver", ["fused", "kernel_fused", "kernel_dense"])
+def test_profile_solve_fused_solvers_on_plain_path(solver):
+    """``--solver`` profiles each plan-based fused solver on the uniform
+    EuRoC-scale problem, here at toy size on the CPU plain path."""
+    from photometric_bundle_adjustment_tpu_torch import profile_solve
+
+    res = profile_solve.main([
+        "--device", "cpu", "--solver", solver, "--K", "12", "--L", "48",
+        "--H", "64", "--W", "96", "--obs-per-lm", "3", "--tries", "2",
+        "--reps", "2"])
+    assert res["solver"] == solver and res["K"] == 12
+    assert res["observations"] == 48 * 3 <= res["rows"]
+    for k in ("build_ms", "warp_ms", "sample_ms", "rj_ms", "solve_lam_ms",
+              "wall_ms"):
+        assert np.isfinite(res[k]) and res[k] > 0, k
+    assert np.isfinite(res["assembly_ms"])
     assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
