@@ -43,8 +43,29 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      build and residual pass; (c) ``make_kernel_dense_solver`` on
      ``euroc_scale_pba`` in the slot-major layout (20 iterations, Huber 9,
      the fused-cost loop), with the same checks but the pose error;
-  5. print one JSON line describing each kernel, the card line again, and
-     as the last line ``{"ok": true, "device": {...}}``.
+  5. the dense slot-major megakernel family and the kernel's bf16 tier on
+     ``euroc_scale_pba`` at full size (164 noise images of 480x752, 24,000
+     observations in 6 x 4,800 slot rows): (a) the dense family's first
+     build and damped solve against the chunk family's on the same
+     problem; (b) the bf16 kernel against its plain version on the widened
+     stack, timed on the device beside its plain version and the f32
+     kernel on the same inputs; (c) ``make_mega_solver(..., plan_slot)`` in
+     f32 and in bf16 (20 iterations, Huber 9, the fused-cost loop),
+     checking that the cost falls and stays finite and that the
+     megakernel launched once per build, with LM it/s and peak memory;
+     (d) ``refine_photometric(sample_bf16=True)`` on the initial phase-2
+     map, checking the cost at every level and the pose error;
+  6. the probes: every variant of the grid-overhead probe
+     (``scripts.grid_overhead.run``: 11 variants, each against its plain
+     version and timed on the device, printed beside the output-only
+     variant) and the window read (``scripts.exp_roll``: the script's call
+     at B = 1, then B = 4,096 tiles in each mode, bit for bit against the
+     plain version, timed beside one ``torch.roll``).
+
+Then it prints one JSON line describing the six kernels (the megakernel's
+f32 and bf16 entries, the Hamming best-two, the patch sampler, the grid
+probe and the window read), the card line again, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Without CUDA it exits with code 2 and prints no result.
 
@@ -127,42 +148,25 @@ def reset_counts():
         patch_sample,
         pba_mega,
     )
+    from photometric_bundle_adjustment_tpu_torch.scripts import (
+        exp_roll,
+        grid_overhead,
+    )
 
     pba_mega.KERNEL_LAUNCHES = 0
+    pba_mega.KERNEL_LAUNCHES_BF16 = 0
     hamming.KERNEL_LAUNCHES = 0
     patch_sample.KERNEL_LAUNCHES = 0
-
-
-def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
-    one CUDA graph, replayed ``replays`` times between CUDA events, so
-    neither the host's launch rate nor the wrapper's Python enters the
-    time.  ``fn`` must not sync the host (the wrappers and plain versions
-    timed here do not); the launch counts see the captured calls, not the
-    replays."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                      # loads the kernel's module before capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    grid_overhead.KERNEL_LAUNCHES = 0
+    exp_roll.KERNEL_LAUNCHES = 0
 
 
 def timed_pair(kernel, plain) -> tuple[float, float]:
     """(kernel ms, plain ms), each the mean of two ``graph_ms`` readings
-    taken in the order plain/kernel/kernel/plain."""
+    (a CUDA graph of 20 calls each) taken in the order
+    plain/kernel/kernel/plain."""
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import graph_ms
+
     p = [graph_ms(plain)]
     k = [graph_ms(kernel), graph_ms(kernel)]
     p.append(graph_ms(plain))
@@ -225,9 +229,9 @@ def compare_payloads(out, ref, images, label: str) -> float:
 def mega_bound_ms(args) -> float:
     """Least time of one megakernel build on these inputs: the bytes it
     must move (each valid observation's slabs and each image pixel its
-    taps touch read once, the (184, Og) output written once) over the
-    card's memory rate.  Its f32 operations (MEGA_OPS_PER_OBS each) take
-    far less, so it is bytes-bound."""
+    taps touch read once, at the stack's 4 or 2 bytes, the (184, Og)
+    output written once) over the card's memory rate.  Its f32 operations
+    (MEGA_OPS_PER_OBS each) take far less, so it is bytes-bound."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
     images, ux, uy, GA, GB, refp, aff, iog, cnt, _ = args
@@ -246,13 +250,14 @@ def mega_bound_ms(args) -> float:
                        + (x0 + dx).clamp(0, W - 1)).reshape(-1)
                       for dy in (0, 1) for dx in (0, 1)])
     n_pix = int(torch.unique(taps).numel())
-    nbytes = 4 * (slab_rows * n_obs + n_pix + 2 * iog.numel()) \
+    texel = images.element_size()
+    nbytes = 4 * (slab_rows * n_obs + 2 * iog.numel()) + texel * n_pix \
         + 4 * pba_mega.OUT_ROWS * Og
     ops = MEGA_OPS_PER_OBS * n_obs
     check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
           "megakernel bound is not bytes")
     print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
-          f"{4 * slab_rows} B, {n_pix} image pixels, output "
+          f"{4 * slab_rows} B, {n_pix} image pixels x {texel} B, output "
           f"{4 * pba_mega.OUT_ROWS * Og / 1e6:.2f} MB) at 3.35 TB/s")
     return 1e3 * nbytes / H100_BYTES_PER_S
 
@@ -491,6 +496,7 @@ def sampler_phase(pipe, device, se3):
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
     from photometric_bundle_adjustment_tpu_torch.profile_solve import (
         SEED,
+        graph_ms,
         time_ms,
     )
 
@@ -591,6 +597,222 @@ def sampler_phase(pipe, device, se3):
     return dict(launches=launches_b + launches_c, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
                 library_ms=library_ms)
+
+
+def dense_phase(pipe, device, se3):
+    """Phase 5: the dense slot-major family and the bf16 tier.  Returns
+    the bf16 entry's JSON fields."""
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+    from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        SEED,
+        graph_ms,
+    )
+
+    t0 = time.perf_counter()
+    prob_u, imgs_u, H, W = synthetic.euroc_scale_pba(seed=SEED, device=device)
+    prob_d, plan_d = fused.densify_problem(prob_u, pow2_buckets=False)
+    K = prob_u.cam_states.pose.shape[0]
+    torch.cuda.synchronize()
+    base_mib = torch.cuda.memory_allocated(device) / 2**20
+    solve_d = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_d, K,
+                                        plan_d, device=device)
+    solve_c = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_u, K,
+                                        device=device)
+    S = plan_d.lm_cam.shape[0]
+    n_obs = int((prob_u.obs.valid != 0).sum())
+    print(f"phase 5: dense family on euroc_scale_pba, {K} images of {H}x{W}, "
+          f"{n_obs} observations in {S} x {prob_u.inv_depth.shape[0]} slot "
+          f"rows, {solve_d.consts.iog.numel()} groups (set up in "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # (a) the dense family's first build and damped solve = the chunk's
+    cfg = ba.BAConfig(max_iterations=MAX_ITERATIONS, huber_delta=HUBER,
+                      cost_from_build=True)
+    c_d, neq_d = solve_d.build(prob_d, cfg)
+    c_c, neq_c = solve_c.build(prob_u, cfg)
+    rel = abs(float(c_d) - float(c_c)) / abs(float(c_c))
+    check(rel <= 1e-5, f"dense build cost rel err {rel} against the chunk's")
+    free = ~prob_u.fixed_cams
+    deltas_d = solve_d.solve_lam(neq_d, 1e-4, free, cfg)
+    deltas_c = solve_c.solve_lam(neq_c, 1e-4, free, cfg)
+    errs = []
+    for name, a, b in zip(("delta_c", "delta_p"), deltas_d, deltas_c):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(err <= 2e-3, f"dense {name} differs from the chunk family's "
+              f"by {err:.3e} x max")
+        errs.append(f"{name} {err:.2e}")
+    print(f"  (a) first build = the chunk family's (cost rel {rel:.2e}); "
+          f"damped solve at lambda 1e-4: max|err| / max|ref| "
+          f"{', '.join(errs)}")
+    del neq_d, neq_c, solve_c
+
+    # (b) the bf16 kernel against its plain version on the widened stack
+    cfg16 = cfg._replace(sample_bf16=True)
+    consts = solve_d.consts
+    ux, uy, _, GA, GB = pba_mega.warp_slabs(
+        "pinhole", prob_d.cam_states, prob_d.inv_depth, consts)
+    aff = pba_mega.affine_slab(prob_d.cam_states.affine, consts)
+    rest = (ux, uy, GA, GB, consts.refp, aff, consts.iog, consts.cnt, HUBER)
+    bf = solve_d.stack(cfg16)
+    stack_mib = bf.numel() * bf.element_size() / 2**20
+    args16 = (bf,) + rest
+    out = pba_mega.mega_rj(*args16)
+    ref = pba_mega.mega_rj_reference(*args16)
+    torch.cuda.synchronize()
+    max_err = compare_payloads(out, ref, bf.float(), "(b) bf16 kernel")
+    del out, ref
+    ms, plain_ms = timed_pair(lambda: pba_mega.mega_rj(*args16),
+                              lambda: pba_mega.mega_rj_reference(*args16))
+    ms32 = graph_ms(lambda: pba_mega.mega_rj(solve_d.images, *rest))
+    print(f"  bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the f32 "
+          f"kernel on the same inputs {ms32:.4f} ms per build on the device "
+          f"(CUDA graphs of 20 calls)")
+    bound_ms = mega_bound_ms(args16)
+    print(f"  bound {bound_ms:.4f} ms: the bf16 kernel at "
+          f"{bound_ms / ms:.1%} of it")
+
+    # (c) the dense solver in both tiers, the fused-cost loop
+    launches = 0
+    for tier, c in (("f32", cfg), ("bf16", cfg16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held_mib = torch.cuda.memory_allocated(device) / 2**20
+        reset_counts()
+        t0 = time.perf_counter()
+        p, res = solve_d(prob_d, c)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n32, n16 = pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16
+        init, cost = float(res.initial_cost), float(res.cost)
+        print(f"  (c) dense solver, {tier}: cost {init:.6e} -> {cost:.6e}, "
+              f"{res.iterations} iterations, {res.tries} tries in {secs:.3f} "
+              f"s: {res.iterations / secs:.2f} LM it/s, "
+              f"{res.tries / secs:.2f} tries/s; launches f32 {n32}, bf16 "
+              f"{n16}; peak {torch.cuda.max_memory_allocated(device) / 2**20:.1f}"
+              f" MiB, {held_mib:.1f} held before the solve ({base_mib:.1f} "
+              f"before the solvers were made, the bf16 stack {stack_mib:.1f})")
+        check(math.isfinite(cost) and cost < init,
+              f"dense {tier}: cost did not fall to a finite value")
+        check(bool(torch.isfinite(p.cam_states.pose).all()
+                   and torch.isfinite(p.inv_depth).all()),
+              f"dense {tier}: non-finite state")
+        want = (res.tries + 1, 0) if tier == "f32" else (0, res.tries + 1)
+        check((n32, n16) == want, f"dense {tier}: launches (f32, bf16) "
+              f"{(n32, n16)} != builds {want}")
+        launches += n16
+    del solve_d, args16, rest, bf
+
+    # (d) refine_photometric in the bf16 tier on the initial map
+    err0 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
+    reset_counts()
+    t0 = time.perf_counter()
+    pba_refine.refine_photometric(
+        pipe, levels=LEVELS, max_iterations=MAX_ITERATIONS,
+        huber_delta=HUBER, sample_bf16=True, log=lambda s: None,
+        device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n32, n16 = pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16
+    for lv in pipe.photometric_levels:
+        print(f"  (d) bf16 level {lv['level']} ({lv['W']}x{lv['H']}): cost "
+              f"{lv['initial_cost']:.6e} -> {lv['cost']:.6e}, "
+              f"{lv['iterations']} iterations, {lv['tries']} tries, "
+              f"{lv['iterations'] / lv['solve_s']:.2f} LM it/s")
+        check(math.isfinite(lv["cost"]) and lv["cost"] < lv["initial_cost"],
+              f"bf16 level {lv['level']}: cost did not fall")
+    err1 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
+    builds = sum(lv["tries"] + 1 for lv in pipe.photometric_levels)
+    print(f"  (d) total {wall:.2f} s; launches f32 {n32}, bf16 {n16}; pose "
+          f"error: translation {err0[0]:.5f} -> {err1[0]:.5f} m, rotation "
+          f"{err0[1]:.6f} -> {err1[1]:.6f} rad")
+    check((n32, n16) == (0, builds),
+          f"refine bf16: launches (f32, bf16) {(n32, n16)} != (0, {builds})")
+    check(err1[0] < err0[0] and err1[1] < err0[1],
+          "refine bf16: pose error against ground truth did not shrink")
+    return dict(launches=launches + n16, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
+
+
+def probe_phase(device):
+    """Phase 6: the grid-overhead probe and the window read.  Returns the
+    JSON fields of both."""
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        H100_BYTES_PER_S,
+        graph_ms,
+    )
+    from photometric_bundle_adjustment_tpu_torch.scripts import (
+        exp_roll,
+        grid_overhead as go,
+    )
+
+    print("phase 6: the grid-overhead probe (11 variants: device ms, plain "
+          "ms, bound)")
+    reset_counts()
+    rows = go.run(device, log=lambda line: print("  " + line))
+    go_launches = go.KERNEL_LAUNCHES
+    base = rows[0]["ms"]
+    for r in rows:
+        extra = "" if r is rows[0] else f", {r['ms'] - base:+.4f} ms"
+        print(f"  {r['ms']:.4f} ms{extra} beside the output-only variant: "
+              f"{r['label']}")
+    scratch = next(r for r in rows if "scratch_bytes" in r)
+    print(f"  the scratch variant reserves {scratch['scratch_bytes']} B of "
+          f"dynamic shared memory per block")
+    ng_cols = go.NG * go.GROUP
+    library_ms = graph_ms(lambda: torch.zeros((go.OUT_ROWS, ng_cols),
+                                              device=device))
+    print(f"  one torch.zeros of the output: {library_ms:.4f} ms")
+    entry = next(r for r in rows
+                 if r["label"] == f"3 prefetch ({ng_cols} code), no scratch")
+    grid = dict(launches=go_launches, max_abs_err=entry["max_abs_err"],
+                ms=entry["ms"], plain_ms=entry["plain_ms"],
+                bound_ms=entry["bound_ms"], bound_by="bytes",
+                library_ms=library_ms)
+
+    print("  window read: the script's call, B = 1")
+    reset_counts()
+    ok = exp_roll.main(["--device", str(device)])
+    roll_launches = exp_roll.KERNEL_LAUNCHES
+    check(all(ok.values()), f"exp_roll entry point: {ok}")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    fields = None
+    for B in (1, 4096):
+        x = torch.randn((B, exp_roll.ROWS, exp_roll.COLS),
+                        generator=gen).to(device)
+        s = torch.full((B,), exp_roll.SHIFT, dtype=torch.int32, device=device)
+        for mode in exp_roll.MODES:
+            out = exp_roll.window(x, s, mode)
+            ref = exp_roll.window_reference(x, s, mode)
+            check(torch.equal(out, ref),
+                  f"exp_roll {mode} at B={B} differs from its plain version")
+            err = float((out - ref).abs().max())
+            ms, plain_ms = timed_pair(
+                lambda: exp_roll.window(x, s, mode),
+                lambda: exp_roll.window_reference(x, s, mode))
+            # the function needs only the 128 columns of its window: each
+            # of them read once, each output written once, the shifts read
+            nbytes = 4 * (2 * out.numel() + s.numel())
+            bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+            line = (f"  {mode} at B={B}: bit-identical; {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ("
+                    f"{nbytes / 1e6:.2f} MB)")
+            if mode == "roll":
+                shift = -exp_roll.SHIFT
+                check(torch.equal(torch.roll(x, shift, 2)[..., :exp_roll.WIN],
+                                  out), "torch.roll differs from the kernel")
+                library_ms = graph_ms(lambda: torch.roll(x, shift, 2))
+                line += f"; one torch.roll {library_ms:.4f} ms"
+                if B == 4096:
+                    fields = dict(launches=roll_launches, max_abs_err=err,
+                                  ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by="bytes",
+                                  library_ms=library_ms)
+            print(line + f": the kernel at {bound_ms / ms:.1%} of the bound")
+    return grid, fields
 
 
 def int_mm_best_two(desc, valid):
@@ -815,23 +1037,26 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.load_all(["pba_mega", "hamming", "patch_sample"])
+    _build.load_all()
     build_s = time.perf_counter() - t0
-    print(f"phase 0: built pba_mega, hamming and patch_sample in "
-          f"{build_s:.2f} s")
+    print(f"phase 0: built {', '.join(_build.SOURCES)} in {build_s:.2f} s")
     for name, (secs, log) in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     pipe = synthetic.synth_pba_pipe(seed=SEED, **EUROC)
-    pipe0 = copy.deepcopy(pipe)       # phase 4 starts from the initial map
+    pipe0 = copy.deepcopy(pipe)       # phases 4-5 start from the initial map
+    pipe5 = copy.deepcopy(pipe)
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
     max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
     front = front_end_phase(device)
     sampler = sampler_phase(pipe0, device, se3)
+    bf16 = dense_phase(pipe5, device, se3)
+    grid, window = probe_phase(device)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_rj",
@@ -846,6 +1071,12 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }, {
+        "name": "pba_mega_rj_bf16",
+        "route": "cuda",
+        "source": "photometric_bundle_adjustment_tpu_torch/csrc/pba_mega.cu",
+        "replaces": "photometric_bundle_adjustment_tpu/ops/pba_mega.py:456",
+        **bf16,
+    }, {
         "name": "hamming_best_two",
         "route": "cuda",
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/hamming.cu",
@@ -857,6 +1088,18 @@ def main() -> int:
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/patch_sample.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/patch_sample.py:61",
         **sampler,
+    }, {
+        "name": "grid_overhead",
+        "route": "cuda",
+        "source": "photometric_bundle_adjustment_tpu_torch/csrc/grid_overhead.cu",
+        "replaces": "scripts/grid_overhead.py:48",
+        **grid,
+    }, {
+        "name": "exp_roll",
+        "route": "cuda",
+        "source": "photometric_bundle_adjustment_tpu_torch/csrc/exp_roll.cu",
+        "replaces": "scripts/exp_roll.py:32",
+        **window,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,15 @@
 // Numerics: nvcc contracts a*b + c into FMAs by default, so results differ
 // from the plain PyTorch version (ops/pba_mega.py mega_rj_reference) by about
 // one ulp per operation; tests hold it at atol 1e-4 * max|ref|.
+//
+// The bf16 tier (the TPU kernel's `sample_bf16`, entry pba_mega_rj_bf16)
+// is the same kernel instantiated on a bf16 image stack: each tap is
+// widened with __bfloat162float and everything after it is f32, so it
+// halves the stack's bytes and differs from the plain version on the
+// widened stack only by the same FMA ulps.  The TPU tier also rounds the
+// bilinear y-weights to bf16; this one does not.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -52,9 +60,15 @@ constexpr int ROW_A0 = 145;
 constexpr int ROW_A1 = 162;
 constexpr int ROW_PAD = 179;
 
+__device__ __forceinline__ float texel(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float texel(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // Bilinear value and gradient with the gather sampler's semantics: clamp to
 // [0, W - 1.001] x [0, H - 1.001]; a clamped coordinate has zero gradient.
-__device__ __forceinline__ void sample(const float* __restrict__ img, int W,
+template <typename T>
+__device__ __forceinline__ void sample(const T* __restrict__ img, int W,
                                        float xmax, float ymax, float u,
                                        float v, float& val, float& gx,
                                        float& gy) {
@@ -64,11 +78,11 @@ __device__ __forceinline__ void sample(const float* __restrict__ img, int W,
   const float y0 = floorf(y);
   const float fx = x - x0;
   const float fy = y - y0;
-  const float* t = img + (size_t)y0 * W + (size_t)x0;
-  const float v00 = __ldg(t);
-  const float v01 = __ldg(t + 1);
-  const float v10 = __ldg(t + W);
-  const float v11 = __ldg(t + W + 1);
+  const T* t = img + (size_t)y0 * W + (size_t)x0;
+  const float v00 = texel(t);
+  const float v01 = texel(t + 1);
+  const float v10 = texel(t + W);
+  const float v11 = texel(t + W + 1);
   val = v00 * (1.0f - fx) * (1.0f - fy) + v01 * fx * (1.0f - fy) +
         v10 * (1.0f - fx) * fy + v11 * fx * fy;
   gx = (v01 - v00) * (1.0f - fy) + (v11 - v10) * fy;
@@ -77,8 +91,9 @@ __device__ __forceinline__ void sample(const float* __restrict__ img, int W,
   if (!(v >= 0.0f && v <= ymax)) gy = 0.0f;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(GROUP)
-pba_mega_rj_kernel(const float* __restrict__ images, int H, int W,
+pba_mega_rj_kernel(const T* __restrict__ images, int H, int W,
                    const float* __restrict__ ux, const float* __restrict__ uy,
                    const float* __restrict__ GA, const float* __restrict__ GB,
                    const float* __restrict__ refp,
@@ -96,7 +111,7 @@ pba_mega_rj_kernel(const float* __restrict__ images, int H, int W,
     return;
   }
 
-  const float* img = images + (size_t)iog[g] * H * W;
+  const T* img = images + (size_t)iog[g] * H * W;
   const float xmax = (float)(W - 1.001);
   const float ymax = (float)(H - 1.001);
 
@@ -180,6 +195,21 @@ static_assert(NGEO * P == 104, "GA/GB hold 13 columns of 8 patch rows");
 
 }  // namespace
 
+template <typename T>
+static int launch(const T* images, int H, int W, const float* ux,
+                  const float* uy, const float* GA, const float* GB,
+                  const float* refp, const float* aff, const int* iog,
+                  const int* cnt, int Og, float huber_delta, float* out,
+                  void* stream) {
+  if (Og <= 0 || Og % GROUP != 0 || H < 2 || W < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  pba_mega_rj_kernel<T><<<Og / GROUP, GROUP, 0, (cudaStream_t)stream>>>(
+      images, H, W, ux, uy, GA, GB, refp, aff, iog, cnt, Og, huber_delta,
+      out);
+  return (int)cudaGetLastError();
+}
+
 // Launches the megakernel on `stream` (a cudaStream_t passed as a pointer).
 // Og must be a positive multiple of 256; iog/cnt hold Og / 256 entries.
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -188,13 +218,19 @@ extern "C" int pba_mega_rj(const float* images, int H, int W, const float* ux,
                            const float* refp, const float* aff, const int* iog,
                            const int* cnt, int Og, float huber_delta,
                            float* out, void* stream) {
-  if (Og <= 0 || Og % GROUP != 0 || H < 2 || W < 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  pba_mega_rj_kernel<<<Og / GROUP, GROUP, 0, (cudaStream_t)stream>>>(
-      images, H, W, ux, uy, GA, GB, refp, aff, iog, cnt, Og, huber_delta,
-      out);
-  return (int)cudaGetLastError();
+  return launch(images, H, W, ux, uy, GA, GB, refp, aff, iog, cnt, Og,
+                huber_delta, out, stream);
+}
+
+// The bf16 tier: as pba_mega_rj on a (Kimg, H, W) bf16 image stack.
+extern "C" int pba_mega_rj_bf16(const __nv_bfloat16* images, int H, int W,
+                                const float* ux, const float* uy,
+                                const float* GA, const float* GB,
+                                const float* refp, const float* aff,
+                                const int* iog, const int* cnt, int Og,
+                                float huber_delta, float* out, void* stream) {
+  return launch(images, H, W, ux, uy, GA, GB, refp, aff, iog, cnt, Og,
+                huber_delta, out, stream);
 }
 
 extern "C" const char* pba_cuda_error_string(int err) {

@@ -25,6 +25,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every source of csrc/, in the order chip_smoke.py prints their builds
+SOURCES = ("pba_mega", "hamming", "patch_sample", "grid_overhead",
+           "exp_roll")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc output) for the builds this process ran
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -71,9 +75,10 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_all(names) -> dict[str, ctypes.CDLL]:
-    """``load`` every source in ``names``, the nvcc runs started together
-    (one process each); raises the first failure."""
+def load_all(names=SOURCES) -> dict[str, ctypes.CDLL]:
+    """``load`` every source in ``names`` (all of ``SOURCES`` by default),
+    the nvcc runs started together (one process each); raises the first
+    failure."""
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         futures = [pool.submit(load, n) for n in names]

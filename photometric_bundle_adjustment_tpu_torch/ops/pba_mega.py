@@ -1,9 +1,11 @@
 """Photometric-BA megakernel solve: warp, sample, Jacobian, Huber and Schur
-payloads in one CUDA kernel, then chunk-plan assembly and a damped Schur
-solve in PyTorch.
+payloads in one CUDA kernel, then normal-equation assembly and a damped
+Schur solve in PyTorch.
 
-Port of the chunk-plan family of ``photometric_bundle_adjustment_tpu/ops/pba_mega.py``.
-Each LM try runs:
+Port of ``photometric_bundle_adjustment_tpu/ops/pba_mega.py``, both of its
+families: the chunk-plan family for ragged maps and the dense slot-major
+family (``plan_slot``) for near-uniform observation counts.  Each LM try
+runs:
 
   phase 1 (``warp_slabs``, PyTorch, plane layout): pose gathers, the
     ray-form warp q = M d + rho u, the model projection with its analytic
@@ -23,10 +25,21 @@ Each LM try runs:
       [162:179)  A1 = J^T r
       [179:184)  zero
 
-  phase 3 (``build_mega_chunk``): chunk-plan normal-equation assembly over
-    the valid observations (``optim/schur_plan.build_schur_plan`` built in
-    group space), and ``solve_lam``: the damped reduced camera system by
-    Cholesky and back-substitution for the inverse depths.
+  phase 3, chunk family (``build_mega_chunk``): chunk-plan normal-equation
+    assembly over the valid observations (``optim/schur_plan.build_schur_plan``
+    built in group space), and ``solve_lam``: the damped reduced camera
+    system by Cholesky and back-substitution for the inverse depths;
+
+  phase 3, dense family (``build_mega2``): the payloads gathered to the
+    slot-major order of ``fused.densify_problem``, landmark reductions as
+    sums over the slot axis, the camera lifts as exact index-adds with the
+    anchor as one extra slot, and a component-major reduced system (row
+    c*K + k) with the coupling pre-scaled by sqrt(inv0); ``solve_lam2``
+    solves it.
+
+``BAConfig.sample_bf16`` picks the kernel's bf16 tier for a build: the
+kernel samples a bf16 copy of the image stack (made once per solver) and
+computes in f32 as the f32 tier does.
 
 Observations are laid out in 256-row groups sorted by target image
 (``mega_layout``).  Rows with lane >= cnt of their group are padding and
@@ -58,12 +71,15 @@ from photometric_bundle_adjustment_tpu_torch.optim import ba
 from photometric_bundle_adjustment_tpu_torch.optim.fused import (
     _chunk_sum,
     _one_hot,
+    damped_camera_solve,
     full_f32,
     plan_to,
     solve_lam,
 )
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
+    DenseLmSchurPlan,
     SchurPlan,
+    _chunk_segments,
     build_schur_plan,
 )
 
@@ -75,8 +91,10 @@ C = 8            # camera tangent: se3(6) + affine(2)
 # chunk sizes of the segment-sum plans (observations per chunk)
 PAIR_CHUNK, LM_CHUNK, CAM_CHUNK = 32, 8, 256
 
-# Launches of the CUDA kernel by ``mega_rj`` in this process.
+# Launches of the CUDA kernel by ``mega_rj`` in this process: the f32
+# entry (an f32 image stack) and the bf16 entry (a bf16 stack).
 KERNEL_LAUNCHES = 0
+KERNEL_LAUNCHES_BF16 = 0
 
 
 class MegaConsts(NamedTuple):
@@ -90,6 +108,18 @@ class MegaConsts(NamedTuple):
     lm: torch.Tensor      # (Og,) int64 landmark
     iog: torch.Tensor     # (ng,) int32 image of group
     cnt: torch.Tensor     # (ng,) int32 valid observations per group
+
+
+class MegaPlan(NamedTuple):
+    """Dense-family assembly plan: group-space pair chunks and the
+    slot-space lift tables of a ``DenseLmSchurPlan``; int64 on the solve's
+    device."""
+
+    pg: torch.Tensor          # (NCp, Bp) group rows; dummy -> zrow
+    cc_rows4: torch.Tensor    # (NCp, 4) rows into K*K [+1 dropped]
+    g_of_s: torch.Tensor      # (Os,) slot row -> group row; padding -> zrow
+    lm_cam: torch.Tensor      # (S, L) target camera of each slot; K = padding
+    anchor_cam_of_lm: torch.Tensor  # (L,) anchor camera; K = no observation
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +192,41 @@ def build_chunk_mega_plan(problem: ba.BAProblem, n_images: int):
     )
     meta = dict(order=order, take=take, Og=Og, zrow=zrow)
     return cplan, meta, (an_g, tn_g, lm_g, iog, cnt)
+
+
+def build_mega_plan(problem_slot: ba.BAProblem,
+                    plan_slot: DenseLmSchurPlan, n_images: int):
+    """Dense-family layout for a slot-major problem (host, numpy).
+
+    ``problem_slot``/``plan_slot`` come from ``fused.densify_problem``.  The
+    group layout (``mega_layout``), the pair chunks in group space and the
+    slot-to-group map are built here; the lift tables are the dense
+    plan's.  Chunk counts are exact (no bucket padding).  Returns
+    ``(plan, meta, idx_arrays)``: feed ``plan`` to ``plan_to`` and ``meta``
+    and ``idx_arrays`` to ``make_mega_consts``."""
+    o = problem_slot.obs
+    K = problem_slot.cam_states.pose.shape[0]
+    valid = o.valid.cpu().numpy() != 0
+    timg = o.aux.target_img.cpu().numpy()
+    order, iog, cnt, g_of_s, zrow = mega_layout(timg, valid, n_images)
+    take = np.where(order >= 0, order, 0)
+    an_g = o.anchor_cam.cpu().numpy()[take].astype(np.int32)
+    tn_g = o.target_cam.cpu().numpy()[take].astype(np.int32)
+    lm_g = o.landmark.cpu().numpy()[take].astype(np.int32)
+
+    # camera-pair Gram chunks over the valid group rows; dummies -> zrow
+    gv = np.flatnonzero(order >= 0)
+    gidx, prows = _chunk_segments(an_g[gv].astype(np.int64) * K + tn_g[gv],
+                                  PAIR_CHUNK)
+    pg = np.where(gidx >= 0, gv[np.clip(gidx, 0, None)], zrow)
+    pa, pc = prows // K, prows % K
+    cc_rows4 = np.stack([pa * K + pa, pa * K + pc, pc * K + pa, pc * K + pc],
+                        1)
+    plan = MegaPlan(pg=pg, cc_rows4=cc_rows4, g_of_s=g_of_s,
+                    lm_cam=plan_slot.lm_cam,
+                    anchor_cam_of_lm=plan_slot.anchor_cam_of_lm)
+    meta = dict(order=order, take=take, Og=order.shape[0], zrow=zrow)
+    return plan, meta, (an_g, tn_g, lm_g, iog, cnt)
 
 
 def make_mega_consts(model: str, problem: ba.BAProblem, meta,
@@ -280,10 +345,12 @@ def mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
                       huber_delta: float):
     """Plain PyTorch version of the megakernel: the (184, Og) payload.
 
-    ``images`` is the (Kimg, H, W) stack; ``ux``/``uy`` (P, Og) are the
-    pixel planes of ``warp_slabs``; ``GA``/``GB`` (104, Og); ``refp``
-    (P, Og); ``aff`` (4, Og) rows [a_r, b_r, a_t, b_t]; ``iog``/``cnt``
-    (Og / 256,) the image and valid-row count of each group."""
+    ``images`` is the (Kimg, H, W) f32 or bf16 stack (a bf16 stack is
+    widened to f32, which is exact); ``ux``/``uy`` (P, Og) are the pixel
+    planes of ``warp_slabs``; ``GA``/``GB`` (104, Og); ``refp`` (P, Og);
+    ``aff`` (4, Og) rows [a_r, b_r, a_t, b_t]; ``iog``/``cnt`` (Og / 256,)
+    the image and valid-row count of each group."""
+    images = images.float()
     _, H, W = images.shape
     Og = ux.shape[1]
     dev = ux.device
@@ -334,8 +401,9 @@ def mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
     return torch.where(slot_ok[None, :], out, torch.zeros_like(out))
 
 
-def _kernel_fn():
-    fn = _build.load("pba_mega").pba_mega_rj
+def _kernel_fn(bf16: bool):
+    lib = _build.load("pba_mega")
+    fn = lib.pba_mega_rj_bf16 if bf16 else lib.pba_mega_rj
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # images, H, W
@@ -361,8 +429,11 @@ def _check_kernel_inputs(images, ux, uy, GA, GB, refp, aff, iog, cnt):
         raise ValueError(f"Og={Og} must be a positive multiple of {GROUP}")
     ng = Og // GROUP
     f32, i32 = torch.float32, torch.int32
+    if images.dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"images must be torch.float32 or torch.bfloat16, "
+                         f"got {images.dtype}")
     expect = {
-        "images": (images, tuple(images.shape), f32),
+        "images": (images, tuple(images.shape), images.dtype),
         "ux": (ux, (P, Og), f32), "uy": (uy, (P, Og), f32),
         "GA": (GA, (13 * P, Og), f32), "GB": (GB, (13 * P, Og), f32),
         "refp": (refp, (P, Og), f32), "aff": (aff, (4, Og), f32),
@@ -384,8 +455,9 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
     """The megakernel payload (184, Og); arguments as ``mega_rj_reference``.
 
     On CUDA tensors it launches the kernel of ``csrc/pba_mega.cu`` on the
-    current stream (or raises); on CPU tensors it runs the plain version."""
-    global KERNEL_LAUNCHES
+    current stream (or raises): the f32 entry for an f32 stack, the bf16
+    entry for a bf16 one.  On CPU tensors it runs the plain version."""
+    global KERNEL_LAUNCHES, KERNEL_LAUNCHES_BF16
     if images.device.type == "cpu":
         return mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
                                  huber_delta)
@@ -394,7 +466,8 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
     _check_kernel_inputs(images, ux, uy, GA, GB, refp, aff, iog, cnt)
     _, H, W = images.shape
     Og = ux.shape[1]
-    fn = _kernel_fn()
+    bf16 = images.dtype == torch.bfloat16
+    fn = _kernel_fn(bf16)
     out = torch.empty((OUT_ROWS, Og), dtype=torch.float32,
                       device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
@@ -408,7 +481,10 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
         lib.pba_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.pba_cuda_error_string(err).decode()
         raise RuntimeError(f"pba_mega_rj launch failed: {msg} ({err})")
-    KERNEL_LAUNCHES += 1
+    if bf16:
+        KERNEL_LAUNCHES_BF16 += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -417,36 +493,47 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
 # ---------------------------------------------------------------------------
 
 
+def _payload(model: str, images, problem: ba.BAProblem, consts: MegaConsts,
+             cfg: ba.BAConfig):
+    """Phases 1 and 2 of a build: the warp slabs and the megakernel's
+    (184, Og) payload."""
+    ux, uy, _fin, GA, GB = warp_slabs(
+        model, problem.cam_states, problem.inv_depth, consts
+    )
+    aff = affine_slab(problem.cam_states.affine, consts)
+    return mega_rj(images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
+                   consts.cnt, float(cfg.huber_delta))
+
+
+def _pair_gram(J2, pg, cc_rows4, K: int):
+    """H_cc (K, K, C, C) from the camera-pair Gram chunks over the kernel's
+    p-major Jacobian rows ``J2`` (rows, 136)."""
+    rows = J2[pg]                                             # (NCp, Bp, 136)
+    rows2 = rows.reshape(rows.shape[0], -1, 17)[..., :16]
+    G2 = torch.bmm(rows2.transpose(1, 2), rows2)              # (NCp, 16, 16)
+    blocks = torch.stack(
+        [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
+    ).reshape(-1, C * C)
+    return (
+        torch.zeros((K * K + 1, C * C), dtype=J2.dtype, device=J2.device)
+        .index_add_(0, cc_rows4.reshape(-1), blocks)[: K * K]
+        .reshape(K, K, C, C)
+    )
+
+
 def build_mega_chunk(model: str, images, problem: ba.BAProblem,
                      consts: MegaConsts, cplan: SchurPlan, cfg: ba.BAConfig):
     """Megakernel + chunk-plan assembly.  Returns ``(cost, neq)`` with
     neq = (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)."""
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
-
-    ux, uy, _fin, GA, GB = warp_slabs(
-        model, problem.cam_states, problem.inv_depth, consts
-    )
-    aff = affine_slab(problem.cam_states.affine, consts)
-    out = mega_rj(images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
-                  consts.cnt, float(cfg.huber_delta))
+    out = _payload(model, images, problem, consts, cfg)
 
     cost = torch.sum(out[ROW_COST])
     # zero dummy row at index Og: the chunk plans' dummy gathers point there
     outT = torch.nn.functional.pad(out.T, (0, 0, 0, 1))       # (Og+1, 184)
     dtype = outT.dtype
-
-    rows = outT[:, :136][cplan.pg]                            # (NCp, Bp, 136)
-    rows2 = rows.reshape(rows.shape[0], -1, 17)[..., :16]
-    G2 = torch.bmm(rows2.transpose(1, 2), rows2)              # (NCp, 16, 16)
-    blocks = torch.stack(
-        [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
-    ).reshape(-1, C * C)
-    H_cc = (
-        torch.zeros((K * K + 1, C * C), dtype=dtype, device=out.device)
-        .index_add_(0, cplan.cc_rows4.reshape(-1), blocks)[: K * K]
-        .reshape(K, K, C, C)
-    )
+    H_cc = _pair_gram(outT[:, :136], cplan.pg, cplan.cc_rows4, K)
 
     A0 = outT[:, 145:162]                                     # (Og+1, 17)
     A1 = outT[:, 162:179]
@@ -477,47 +564,127 @@ def build_mega_chunk(model: str, images, problem: ba.BAProblem,
     return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
 
 
-def _check_cfg(cfg: ba.BAConfig):
-    if cfg.sample_bf16:
-        raise NotImplementedError(
-            "sample_bf16 is not ported yet (ROADMAP queue 1, the "
-            "sample_bf16 tier); use sample_bf16=False"
-        )
+def build_mega2(model: str, images, problem: ba.BAProblem,
+                consts: MegaConsts, plan: MegaPlan, cfg: ba.BAConfig):
+    """Megakernel + dense slot-major assembly.  Returns ``(cost, neq)`` with
+    the contract of ``solve_lam2``: neq = (H_cc_mat, S_corr0, rhs_corr0,
+    g_c, g_p, Ms, inv0, s).
+
+    The reduced system is COMPONENT-major (row c*K + k), ``g_c`` is
+    (C, K), ``Ms`` (L, C*K) is the camera coupling scaled by s = sqrt(inv0)
+    (so S_corr0 = Ms^T Ms and (M dc) inv0 = s (Ms dc)).  The camera lifts
+    are index-adds with the anchor as one extra virtual slot: exact f32
+    sums, as the JAX package's compare-and-reduce lifts, never a one-hot
+    product at reduced precision."""
+    K = problem.cam_states.pose.shape[0]
+    L = problem.inv_depth.shape[0]
+    dev = problem.inv_depth.device
+    out = _payload(model, images, problem, consts, cfg)
+
+    cost = torch.sum(out[ROW_COST])
+    dtype = out.dtype
+    H_cc = _pair_gram(out[:136].T, plan.pg, plan.cc_rows4, K)
+    H_cc_mat = H_cc.permute(2, 0, 3, 1).reshape(K * C, K * C)
+
+    # payload rows in slot order (padding slots read the zero row zrow)
+    AB = out[145:179].T[plan.g_of_s]                          # (Os, 34)
+    S_ = plan.lm_cam.shape[0]
+    A0r = AB[:, :17].reshape(S_, L, 17)
+    A1r = AB[:, 17:].reshape(S_, L, 17)
+    red0 = A0r.sum(0)                                         # (L, 17)
+    anchor_v, H_pp = red0[:, :C], red0[:, 16]
+    g_p = A1r[:, :, 16].sum(0)
+
+    inv0 = problem.lm_valid.to(dtype) / torch.clamp(
+        H_pp, min=cfg.min_inv_depth_hessian)
+    s = torch.sqrt(inv0)
+
+    # lifts over S+1 slots, the anchor the extra one; camera K is dropped
+    lm_cam_ext = torch.cat([plan.lm_cam, plan.anchor_cam_of_lm[None]], 0)
+    vt_ext = torch.cat([A0r[:, :, C:2 * C], anchor_v[None]], 0) \
+        * s[None, :, None]                                    # (S+1, L, C)
+    lm_base = torch.arange(L, device=dev) * (K + 1)
+    Ms = (torch.zeros((L * (K + 1), C), dtype=dtype, device=dev)
+          .index_add_(0, (lm_base + lm_cam_ext).reshape(-1),
+                      vt_ext.reshape(-1, C))
+          .reshape(L, K + 1, C)[:, :K]
+          .permute(0, 2, 1).reshape(L, C * K))                # c-major columns
+    a1_ext = torch.cat([A1r[:, :, C:2 * C], A1r[:, :, :C].sum(0)[None]], 0)
+    g_c = (torch.zeros((K + 1, C), dtype=dtype, device=dev)
+           .index_add_(0, lm_cam_ext.reshape(-1), a1_ext.reshape(-1, C))
+           [:K].T)                                            # (C, K)
+
+    S_corr0 = Ms.T @ Ms                                       # (C*K, C*K)
+    rhs_corr0 = (s * g_p) @ Ms
+    return cost, (H_cc_mat, S_corr0, rhs_corr0, g_c, g_p, Ms, inv0, s)
+
+
+def solve_lam2(neq, lam: float, free_cam_mask: torch.Tensor,
+               cfg: ba.BAConfig):
+    """Damped solve and back-substitution for the neq of ``build_mega2``
+    (component-major reduced system).  Returns ``(delta_c (K, C),
+    delta_p (L,))``; NaN deltas where the damped system is not positive
+    definite (``fused.damped_camera_solve``)."""
+    H_cc_mat, S_corr0, rhs_corr0, g_c, g_p, Ms, inv0, s = neq
+    K = free_cam_mask.shape[0]
+    C_ = H_cc_mat.shape[0] // K
+    mask = free_cam_mask.to(g_c.dtype).repeat(C_)             # row c*K + k
+    delta_c = damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask, lam)
+    delta_p = -(g_p * inv0 + s * (Ms @ delta_c)) / (1.0 + lam)
+    return delta_c.reshape(C_, K).T, delta_p
 
 
 def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
                      problem_slot: ba.BAProblem, n_images: int,
                      plan_slot=None, *, device="cuda"):
-    """Megakernel photometric LM solver, chunk-plan family.
+    """Megakernel photometric LM solver.
+
+    With ``plan_slot`` (the ``DenseLmSchurPlan`` of a problem reordered by
+    ``fused.densify_problem``): the dense slot-major family,
+    ``build_mega_plan`` + ``build_mega2`` + ``solve_lam2``.  Without it:
+    the chunk-plan family over the valid observations,
+    ``build_chunk_mega_plan`` + ``build_mega_chunk`` + ``solve_lam``.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)``, with
-    ``.build(problem, cfg)``, ``.solve_lam(neq, lam, free, cfg)``, the
-    ``.images`` stack and the group-order ``.consts`` exposed.
-    ``problem_slot`` fixes the observation graph; ``solve`` takes a problem
-    with the same observations and any state.  Everything runs on
-    ``device``."""
-    if plan_slot is not None:
-        raise NotImplementedError(
-            "the dense slot-major family (build_mega2/solve_lam2, plan_slot) "
-            "is not ported yet (ROADMAP queue 1, the dense family); call "
-            "without plan_slot for the chunk family"
-        )
+    ``.build(problem, cfg)``, ``.solve_lam(neq, lam, free, cfg)``, the f32
+    ``.images`` stack, ``.stack(cfg)`` (the stack a build with ``cfg``
+    samples), the group-order ``.consts`` and the ``.plan`` exposed.
+    ``problem_slot`` fixes the observation graph; ``solve`` takes a
+    problem with the same observations and any state.  A build with
+    ``cfg.sample_bf16`` samples a bf16 copy of the stack, made at the
+    first such build and kept.  Everything runs on ``device``."""
+    if plan_slot is not None and not isinstance(plan_slot, DenseLmSchurPlan):
+        raise TypeError(f"plan_slot must be a DenseLmSchurPlan, got "
+                        f"{type(plan_slot).__name__}")
     device = devices.resolve(device)
     problem_slot = ba.problem_to(problem_slot, device)
     images = images_flat.to(device=device, dtype=torch.float32)
     images = images.reshape(-1, H, W).contiguous()
-    cplan_np, meta, idx_arrays = build_chunk_mega_plan(problem_slot, n_images)
-    cplan = plan_to(cplan_np, device)
+    if plan_slot is not None:
+        plan_np, meta, idx_arrays = build_mega_plan(problem_slot, plan_slot,
+                                                    n_images)
+        build_impl, solve_lam_impl = build_mega2, solve_lam2
+    else:
+        plan_np, meta, idx_arrays = build_chunk_mega_plan(problem_slot,
+                                                          n_images)
+        build_impl, solve_lam_impl = build_mega_chunk, solve_lam
+    plan = plan_to(plan_np, device)
     consts = make_mega_consts(model, problem_slot, meta, idx_arrays)
+    stacks = {torch.float32: images}
+
+    def stack(cfg: ba.BAConfig):
+        dtype = torch.bfloat16 if cfg.sample_bf16 else torch.float32
+        if dtype not in stacks:
+            stacks[dtype] = images.to(dtype)
+        return stacks[dtype]
 
     def build(problem, cfg: ba.BAConfig):
-        _check_cfg(cfg)
         with full_f32():
-            return build_mega_chunk(model, images, problem, consts, cplan, cfg)
+            return build_impl(model, stack(cfg), problem, consts, plan, cfg)
 
     def _solve_lam(neq, lam, free, cfg: ba.BAConfig):
         with full_f32():
-            return solve_lam(neq, lam, free, cfg)
+            return solve_lam_impl(neq, lam, free, cfg)
 
     def apply_step(prob, dc, dp):
         return prob._replace(cam_states=cam_retract(prob.cam_states, dc),
@@ -561,5 +728,7 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     solve.build = build
     solve.solve_lam = _solve_lam
     solve.images = images
+    solve.stack = stack
     solve.consts = consts
+    solve.plan = plan
     return solve

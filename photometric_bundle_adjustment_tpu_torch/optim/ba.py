@@ -47,8 +47,8 @@ class BAConfig(NamedTuple):
     # is the accept check, and on acceptance its normal equations seed the
     # next iteration; no separate residual pass runs
     cost_from_build: bool = False
-    # bf16 patch sampling in the megakernel: not ported yet (ROADMAP,
-    # "sample_bf16 tier"); the solver raises if it is set
+    # the megakernel's bf16 tier (ops/pba_mega.py): sample a bf16 copy of
+    # the image stack, taps and arithmetic in f32
     sample_bf16: bool = False
 
 

@@ -148,28 +148,37 @@ def _schur_terms(M, inv0, g_p):
     return Mw.T @ M, Mw.T @ g_p
 
 
+def damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask,
+                        lam: float):
+    """The damped reduced camera system
+    (H_cc + lam diag(H_cc) - S_corr0 / (1 + lam)) dc = -(g_c - rhs_corr0 /
+    (1 + lam)) with the rows and columns of ``mask`` == 0 (fixed cameras)
+    pinned to dc = 0, by Cholesky; ``g_c`` and ``mask`` in the system's row
+    order.  Returns dc flat.  Where the damped system is not positive
+    definite (``cholesky_ex`` reports it), dc is NaN, so the trial cost is
+    NaN and the LM loop rejects the try, as the reference's NaN Cholesky
+    does."""
+    d_cc = torch.clamp(torch.diagonal(H_cc_mat), 1e-12, 1e32)
+    S = H_cc_mat + torch.diag(lam * d_cc) - S_corr0 / (1.0 + lam)
+    rhs = -(g_c.reshape(-1) - rhs_corr0 / (1.0 + lam))
+    S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
+    chol, info = torch.linalg.cholesky_ex(S)
+    delta_c = torch.cholesky_solve((rhs * mask)[:, None], chol)[:, 0] * mask
+    return torch.where(info == 0, delta_c, torch.full_like(delta_c, math.nan))
+
+
 def solve_lam(neq, lam: float, free_cam_mask: torch.Tensor,
               cfg: ba.BAConfig):
     """Damped reduced-camera solve + inverse-depth back-substitution: the
     cheap per-lambda retry on fixed normal equations
-    ``(H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)``.
-
-    Where the damped system is not positive definite (``cholesky_ex``
-    reports it), the deltas are NaN, so the trial cost is NaN and the LM
-    loop rejects the try, as the reference's NaN Cholesky does."""
+    ``(H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)``, whose
+    reduced system is camera-major (row k*C + c).  NaN deltas where the
+    damped system is not positive definite (``damped_camera_solve``)."""
     H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0 = neq
-    KC = H_cc_mat.shape[0]
     K = free_cam_mask.shape[0]
-    C_ = KC // K
-    dtype = g_c.dtype
-    d_cc = torch.clamp(torch.diagonal(H_cc_mat), 1e-12, 1e32)
-    S = H_cc_mat + torch.diag(lam * d_cc) - S_corr0 / (1.0 + lam)
-    rhs = -(g_c.reshape(-1) - rhs_corr0 / (1.0 + lam))
-    mask = free_cam_mask.to(dtype).repeat_interleave(C_)
-    S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
-    chol, info = torch.linalg.cholesky_ex(S)
-    delta_c = torch.cholesky_solve((rhs * mask)[:, None], chol)[:, 0] * mask
-    delta_c = torch.where(info == 0, delta_c, torch.full_like(delta_c, math.nan))
+    C_ = H_cc_mat.shape[0] // K
+    mask = free_cam_mask.to(g_c.dtype).repeat_interleave(C_)
+    delta_c = damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask, lam)
     delta_p = -(g_p + M @ delta_c) * inv0 / (1.0 + lam)
     return delta_c.reshape(K, C_), delta_p
 

@@ -3,8 +3,8 @@
 Port of ``photometric_bundle_adjustment_tpu/pipeline/pba_refine.py``: take
 the map (poses + anchored inverse depths) as seed, build the direct
 intensity-patch problem over the images, and run the megakernel LM solver
-coarse to fine over an image pyramid.  The chunk-plan family runs on every
-device.
+coarse to fine over an image pyramid, in the chunk-plan family (the map's
+tracks are heavy-tailed) and, with ``sample_bf16``, the kernel's bf16 tier.
 """
 
 from __future__ import annotations
@@ -114,12 +114,10 @@ def refine_photometric(pipe, max_iterations: int = 20,
     Also sets ``pipe.photometric_levels``: one dict per pyramid level, in
     solve order, with the level's size, initial and final cost, accepted
     iterations, tries, and the set-up and solve seconds (the solve timed
-    to a device sync)."""
-    if sample_bf16:
-        raise NotImplementedError(
-            "sample_bf16 is not ported yet (ROADMAP queue 1, the sample_bf16 "
-            "tier); call with sample_bf16=False"
-        )
+    to a device sync).
+
+    ``sample_bf16`` runs the megakernel's bf16 tier: it samples a bf16 copy
+    of each level's image stack, with the taps and all arithmetic in f32."""
     device = devices.resolve(device)
     t0 = time.perf_counter()
     problem, images_flat, H, W, cam_list, lm_list = build_photometric_problem(
@@ -127,7 +125,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
     )
     model = pipe.calib.cam_types[0] if pipe.calib.cam_types else "ds"
     cfg = ba.BAConfig(max_iterations=max_iterations, huber_delta=huber_delta,
-                      function_tolerance=1e-8)
+                      function_tolerance=1e-8, sample_bf16=sample_bf16)
 
     pyramid = pba.build_pyramid(images_flat.reshape(-1, H, W), levels)
     state = problem

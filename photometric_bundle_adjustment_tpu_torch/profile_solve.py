@@ -1,18 +1,24 @@
 """Where the time of one LM try goes, at full resolution.
 
     python3 -m photometric_bundle_adjustment_tpu_torch.profile_solve \
-        [--solver {mega,fused,kernel_fused,kernel_dense}]
+        [--solver {mega,fused,kernel_fused,kernel_dense}] \
+        [--family {chunk,dense}] [--bf16]
 
-``--solver mega`` (the default) builds the synthetic EuRoC-scale map
-``EUROC`` (164 images of 480x752, about 4.8k landmarks, about 30k
-observations, seed 0; ``chip_smoke.py`` drives the same map) and the
-level-0 solver ``refine_photometric`` would build for it, warms up, and
-then, at the map's initial state:
+``--solver mega`` (the default) profiles the megakernel solver
+``make_mega_solver``.  Its chunk family (``--family chunk``, the default)
+runs on the synthetic EuRoC-scale map ``EUROC`` (164 images of 480x752,
+about 4.8k landmarks, about 30k observations, seed 0; ``chip_smoke.py``
+drives the same map) with the level-0 solver ``refine_photometric`` would
+build for it; its dense slot-major family (``--family dense``) on
+``synthetic.euroc_scale_pba`` reordered by ``densify_problem`` (the
+workload of the JAX package's ``bench.py`` ``pba_lm``).  ``--bf16`` runs
+the kernel's bf16 tier.  It warms up and then, at the initial state:
 
   * times each piece of a try, mean of ``--reps`` calls (CUDA events on a
     GPU, the host clock on the CPU): the whole build (``warp_slabs``, the
-    megakernel and the chunk-plan assembly), ``warp_slabs`` alone, the
-    megakernel alone and the damped solve ``solve_lam``;
+    megakernel and the family's assembly), ``warp_slabs`` alone, the
+    megakernel alone, the assembly (the build less the two) and the damped
+    solve (``solve_lam`` or ``solve_lam2``);
   * runs ``--tries`` LM tries (damped solve, retraction, build at the trial
     point, host sync of the trial cost, as ``make_mega_solver``'s loop does)
     under ``torch.profiler`` and reports the wall time, the device busy time
@@ -67,6 +73,8 @@ from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 # about 4.8k landmarks and 30k observations with a heavy tail of tracks.
 EUROC = dict(K=164, L=4800, H=480, W=752, obs_per_lm=5, long_tracks=200)
 SEED = 0
+# the H100 SXM's published memory rate at 700 W, for reckoned bounds
+H100_BYTES_PER_S = 3.35e12
 
 
 def time_ms(fn, device: torch.device, reps: int = 20,
@@ -88,6 +96,34 @@ def time_ms(fn, device: torch.device, reps: int = 20,
     for _ in range(reps):
         fn()
     return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn`` on the current CUDA device:
+    ``reps`` calls captured in one CUDA graph, replayed ``replays`` times
+    between CUDA events, so neither the host's launch rate nor the
+    wrapper's Python enters the time.  ``fn`` must not sync the host; it
+    runs once on a side stream before the capture (loading its kernel's
+    module), and the launch counts see that call and the captured calls,
+    not the replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def _busy_us(intervals) -> float:
@@ -241,7 +277,10 @@ def profile_fused(args, device: torch.device) -> dict:
 
 def _report(result: dict, phases, prof: dict, tries: int, reps: int):
     gpu = result["device"] != "cpu"
-    print(f"profile_solve ({result['solver']}): {result['device']}, "
+    family = (f", {result['family']} family"
+              f"{', bf16 tier' if result['bf16'] else ''}"
+              if "family" in result else "")
+    print(f"profile_solve ({result['solver']}{family}): {result['device']}, "
           f"{result['K']} images of {result['H']}x{result['W']}, "
           f"{result['L']} landmarks, {result['observations']} observations")
     for k in phases:
@@ -265,6 +304,8 @@ def main(argv=None) -> dict:
         ap.add_argument(f"--{k}", type=int, default=EUROC[k])
     ap.add_argument("--obs-per-lm", type=int, default=EUROC["obs_per_lm"])
     ap.add_argument("--long-tracks", type=int, default=EUROC["long_tracks"])
+    ap.add_argument("--family", default="chunk", choices=("chunk", "dense"))
+    ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tries", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -277,19 +318,29 @@ def main(argv=None) -> dict:
                 args.reps)
         return result
 
-    pipe = synthetic.synth_pba_pipe(
-        K=args.K, L=args.L, H=args.H, W=args.W, obs_per_lm=args.obs_per_lm,
-        long_tracks=args.long_tracks, seed=SEED)
-    model = pipe.calib.cam_types[0]
     if gpu:
         torch.cuda.reset_peak_memory_stats(device)
-    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
-        pipe, device=device)
+    if args.family == "dense":
+        model = "pinhole"
+        problem, images_flat, H, W = synthetic.euroc_scale_pba(
+            K=args.K, L=args.L, obs_per_lm=args.obs_per_lm, H=args.H,
+            W=args.W, seed=SEED, device=device)
+        problem, plan_slot = fused.densify_problem(problem, pow2_buckets=False)
+    else:
+        pipe = synthetic.synth_pba_pipe(
+            K=args.K, L=args.L, H=args.H, W=args.W,
+            obs_per_lm=args.obs_per_lm, long_tracks=args.long_tracks,
+            seed=SEED)
+        model = pipe.calib.cam_types[0]
+        problem, images_flat, H, W, _, _ = \
+            pba_refine.build_photometric_problem(pipe, device=device)
+        plan_slot = None
     K = problem.cam_states.pose.shape[0]
     solve = pba_mega.make_mega_solver(model, images_flat, H, W, problem, K,
-                                      device=device)
-    cfg = ba.BAConfig(huber_delta=9.0)
+                                      plan_slot, device=device)
+    cfg = ba.BAConfig(huber_delta=9.0, sample_bf16=args.bf16)
     consts = solve.consts
+    images = solve.stack(cfg)
 
     def ms(fn):
         return time_ms(fn, device, args.reps)
@@ -304,15 +355,18 @@ def main(argv=None) -> dict:
         warp_slabs_ms=ms(lambda: pba_mega.warp_slabs(
             model, problem.cam_states, problem.inv_depth, consts)),
         megakernel_ms=ms(lambda: pba_mega.mega_rj(
-            solve.images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
+            images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
             consts.cnt, cfg.huber_delta)),
-        solve_lam_ms=ms(lambda: solve.solve_lam(
-            neq, float(cfg.init_lambda), free, cfg)),
     )
+    phases["assembly_ms"] = (phases["build_ms"] - phases["warp_slabs_ms"]
+                             - phases["megakernel_ms"])
+    phases["solve_lam_ms"] = ms(lambda: solve.solve_lam(
+        neq, float(cfg.init_lambda), free, cfg))
     prof = profile_tries(solve, problem, cfg, args.tries, device)
     result = dict(
         device=torch.cuda.get_device_name(device) if gpu else "cpu",
-        solver="mega", K=K, L=int(problem.inv_depth.shape[0]),
+        solver="mega", family=args.family, bf16=args.bf16, K=K,
+        L=int(problem.inv_depth.shape[0]),
         observations=int(consts.cnt.sum()), Og=int(ux.shape[1]),
         H=H, W=W, reps=args.reps, **phases, **prof,
         peak_device_mib=(torch.cuda.max_memory_allocated(device) / 2**20

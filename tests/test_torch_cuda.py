@@ -2,10 +2,13 @@
 their plain PyTorch versions, and their wrappers' guards; the front end
 and the kernel-sampled photometric solvers on the card against the CPU
 plain path.  Marked ``cuda``; each test skips where no CUDA device is
-present.  The megakernel and the patch sampler contract a*b + c into FMAs
-and the plain versions do not, so they agree to about one ulp per
-operation: atol 1e-4 * max|ref| (per row block for the megakernel).  The
-Hamming kernel is integer arithmetic and must be bit-identical.
+present.  The megakernel (both tiers) and the patch sampler contract
+a*b + c into FMAs and the plain versions do not, so they agree to about
+one ulp per operation: atol 1e-4 * max|ref| (per row block for the
+megakernel).  The Hamming kernel is integer arithmetic and the window
+read a copy: both must be bit-identical.  The grid probe's output must be
+exactly zero and its checksums agree within rtol 1e-5 (the order of the
+sums differs).
 
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
@@ -30,6 +33,8 @@ from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
     SfmPipeline,
 )
+from photometric_bundle_adjustment_tpu_torch.scripts import exp_roll
+from photometric_bundle_adjustment_tpu_torch.scripts import grid_overhead as go
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +95,20 @@ def test_kernel_matches_plain_version(cuda, width):
     assert (out[:, pad] == 0).all()
 
 
+@pytest.mark.parametrize("width", [96, 8448])
+def test_bf16_kernel_matches_plain_version(cuda, width):
+    images, *rest = _inputs(cuda, W=width, seed=5)
+    bf = images.to(torch.bfloat16)
+    before = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
+    out = pba_mega.mega_rj(bf, *rest, 9.0)
+    torch.cuda.synchronize()
+    assert (pba_mega.KERNEL_LAUNCHES,
+            pba_mega.KERNEL_LAUNCHES_BF16) == (before[0], before[1] + 1)
+    _assert_matches(out, pba_mega.mega_rj_reference(bf.float(), *rest, 9.0))
+    # the tier is on: rounding the stack moves the payload
+    assert not torch.equal(out, pba_mega.mega_rj(images, *rest, 9.0))
+
+
 def test_kernel_squared_loss(cuda):
     args = _inputs(cuda, seed=3)
     _assert_matches(pba_mega.mega_rj(*args, 0.0),
@@ -109,6 +128,13 @@ def test_wrapper_rejects_bad_inputs(cuda):
                          iog, cnt, 9.0)
     with pytest.raises(ValueError, match="is on cpu"):
         pba_mega.mega_rj(images, ux, uy, GA, GB, refp, aff, iog.cpu(), cnt,
+                         9.0)
+    # bf16 is taken for the image stack only
+    with pytest.raises(ValueError, match="float32"):
+        pba_mega.mega_rj(images.to(torch.bfloat16), ux.to(torch.bfloat16),
+                         uy, GA, GB, refp, aff, iog, cnt, 9.0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pba_mega.mega_rj(images.half(), ux, uy, GA, GB, refp, aff, iog, cnt,
                          9.0)
 
 
@@ -311,3 +337,32 @@ def test_kernel_solvers_on_card_match_cpu(cuda, solver):
     np.testing.assert_allclose(c_g, c_c, rtol=5e-3)
     np.testing.assert_allclose(p_g, p_c, atol=1e-4)
     assert c_g < i_g
+
+
+@pytest.mark.parametrize("index", range(11))
+def test_grid_probe_matches_plain_version(cuda, index):
+    v = go.variants()[index]
+    lanes, images = go.make_inputs(cuda, seed=2)
+    args = go.variant_args(v, lanes, images)
+    before = go.KERNEL_LAUNCHES
+    out, checksum = go.probe(**args)
+    torch.cuda.synchronize()
+    assert go.KERNEL_LAUNCHES == before + 1
+    _, ref = go.probe_reference(**args)
+    assert go.check(out, checksum, ref, v.label) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", exp_roll.MODES)
+def test_window_kernel_bit_identical(cuda, mode):
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((64, 24, 256), generator=gen).to(cuda)
+    s = torch.tensor([0, 1, 13, 127, 128, -3, 129, 300] * 8,
+                     dtype=torch.int32, device=cuda)
+    before = exp_roll.KERNEL_LAUNCHES
+    out = exp_roll.window(x, s, mode)
+    torch.cuda.synchronize()
+    assert exp_roll.KERNEL_LAUNCHES == before + 1
+    ref = exp_roll.window_reference(x, s, mode)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out.nan_to_num(), ref.nan_to_num())
+    assert exp_roll.main(["--device", "cuda", mode]) == {mode: True}

@@ -236,9 +236,14 @@ def test_solve_lam_rejects_indefinite_system(case):
 
 
 def test_solver_rejects_unported_paths(case):
-    with pytest.raises(NotImplementedError, match="dense"):
+    """Both paths that were once refused are ported: a plan that is not a
+    ``DenseLmSchurPlan`` is still rejected, and the bf16 tier now runs
+    (tests/test_torch_mega_dense.py holds both against the JAX package)."""
+    with pytest.raises(TypeError, match="DenseLmSchurPlan"):
         tmega.make_mega_solver(case.model, case.images.reshape(-1), case.H,
                                case.W, case.tproblem, case.K,
                                plan_slot=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sample_bf16"):
-        case.tsolve(case.tproblem, tba.BAConfig(sample_bf16=True))
+    _, res = case.tsolve(case.tproblem, tba.BAConfig(
+        max_iterations=2, huber_delta=HUBER, sample_bf16=True))
+    assert np.isfinite(float(res.cost))
+    assert float(res.cost) < float(res.initial_cost)

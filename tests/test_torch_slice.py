@@ -175,8 +175,9 @@ def test_cuda_request_without_cuda_raises():
     pipe = synthetic.synth_pba_pipe(K=4, L=8, seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pba_refine.refine_photometric(pipe, levels=1, device="cuda")
-    with pytest.raises(NotImplementedError, match="sample_bf16"):
-        pba_refine.refine_photometric(pipe, sample_bf16=True, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pba_refine.refine_photometric(pipe, levels=1, sample_bf16=True,
+                                      device="cuda")
     meta = torch.empty((8, 256), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         pba_mega.mega_rj(torch.empty((1, 4, 4), device="meta"), meta, meta,
@@ -195,8 +196,13 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
     from photometric_bundle_adjustment_tpu_torch.optim import fused
 
+    from photometric_bundle_adjustment_tpu_torch.scripts import (
+        exp_roll,
+        grid_overhead,
+    )
+
     prob_s, iog, cnt = pba.imagesort_problem(problem, 4)
-    prob_d, _ = fused.densify_problem(problem)
+    prob_d, plan_d = fused.densify_problem(problem)
     return {
         "make_fused_solver": lambda: pba.make_fused_solver(
             "ds", images_flat, H, W),
@@ -212,6 +218,10 @@ def _entry_point_calls():
             pba_refine.build_photometric_problem(pipe),
         "make_mega_solver": lambda: pba_mega.make_mega_solver(
             "ds", images_flat, H, W, problem, 4),
+        "make_mega_solver_dense": lambda: pba_mega.make_mega_solver(
+            "ds", images_flat, H, W, prob_d, 4, plan_d),
+        "grid_overhead": lambda: grid_overhead.main([]),
+        "exp_roll": lambda: exp_roll.main([]),
         "synth_pba_problem": lambda: synthetic.synth_pba_problem(),
         "synth_stereo_sequence": lambda: synthetic.synth_stereo_sequence(
             n_frames=1, H=40, W=60),
@@ -224,6 +234,7 @@ def _entry_point_calls():
 @pytest.mark.parametrize("name", [
     "make_fused_solver", "make_kernel_fused_solver",
     "make_kernel_dense_solver", "euroc_scale_pba", "refine_photometric", "build_photometric_problem", "make_mega_solver",
+    "make_mega_solver_dense", "grid_overhead", "exp_roll",
     "synth_pba_problem", "synth_stereo_sequence", "SfmPipeline",
     "descriptors_from_numpy"])
 def test_entry_points_default_to_cuda(name):
@@ -252,6 +263,28 @@ def test_profile_solve_on_plain_path():
               "wall_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert res["top_self_ms"] and res["top_by"] == "self_cpu_time_total"
+    assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
+
+
+@pytest.mark.parametrize("family,bf16", [("chunk", True), ("dense", False),
+                                         ("dense", True)])
+def test_profile_solve_mega_families_on_plain_path(family, bf16):
+    """``--family dense`` profiles the megakernel solver's dense slot-major
+    family on ``euroc_scale_pba``, ``--bf16`` the kernel's bf16 tier."""
+    from photometric_bundle_adjustment_tpu_torch import profile_solve
+
+    res = profile_solve.main([
+        "--device", "cpu", "--family", family, "--K", "12", "--L", "48",
+        "--H", "64", "--W", "96", "--obs-per-lm", "3", "--long-tracks", "4",
+        "--tries", "2", "--reps", "2"] + (["--bf16"] if bf16 else []))
+    assert (res["family"], res["bf16"]) == (family, bf16)
+    assert res["K"] == 12 and res["Og"] % pba_mega.GROUP == 0
+    if family == "dense":
+        assert res["observations"] == 48 * 3
+    for k in ("build_ms", "warp_slabs_ms", "megakernel_ms", "solve_lam_ms",
+              "wall_ms"):
+        assert np.isfinite(res[k]) and res[k] > 0, k
+    assert np.isfinite(res["assembly_ms"])
     assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
 
 
