@@ -8,7 +8,10 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
 
   0. print the card's name and power limit; build the CUDA kernels from
      ``photometric_bundle_adjustment_tpu_torch/csrc`` (one nvcc each, all
-     started together) and time the build;
+     started together) and time the build; print each Hamming kernel
+     instance's registers, spills and tensor-core instruction count (from
+     ``cuobjdump``) and its shared memory; measure the card's sustained
+     mma.sync rate in the b1 and s8 forms (``csrc/mma_rate.cu``);
   1. the megakernel against its plain PyTorch version on the card, at
      EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
      observations, some warped off the image, one non-finite) and on a
@@ -25,11 +28,11 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      13,284-pair worklist with ``match.matches_to_pairs`` on the card
      (held equal to the host's ``compact_matches_np``), checking the
      corner counts, detection and description against the CPU plain
-     path, the stereo inliers against the rendered ground truth, the
-     Hamming kernel bit for bit against its plain version over the whole
-     worklist, and its launch count; the
-     kernel, the plain version and a ``torch._int_mm`` form of the same
-     function timed with CUDA events;
+     path, the stereo inliers against the rendered ground truth, and the
+     Hamming kernel's launches on the path (one per ``match_batch``: both
+     directions from one distance tile); then ``best_two_both`` over the
+     whole worklist bit for bit against its plain version and a
+     ``torch._int_mm`` form, all three timed with CUDA events;
   4. the patch sampler and the two kernel-sampled fused solvers:
      (a) the sampler kernel against its plain version at EuRoC scale, on
      the ``imagesort_problem`` layout of phase 2's map at level 0 with the
@@ -72,7 +75,9 @@ Without CUDA it exits with code 2 and prints no result.
 Bounds (``bound_ms``) are reckoned from this run's inputs against the
 H100 SXM's published peaks at 700 W: 3.35 TB/s of device memory, 67
 TFLOP/s of f32 outside the tensor cores and 1,979 TOP/s of dense int8
-tensor-core operations.
+tensor-core operations.  The data sheet gives no rate for b1 products,
+so the Hamming bound takes the faster of the int8 peak and the b1 rate
+phase 0 measured.
 """
 
 from __future__ import annotations
@@ -815,6 +820,98 @@ def probe_phase(device):
     return grid, fields
 
 
+def hamming_resources():
+    """Phase 0's account of the Hamming kernel, read from the built library
+    with ``cuobjdump``: each instance's registers, stack and local memory
+    (``-res-usage``; spills would show as local memory) and its
+    tensor-core instructions (``-sass``: IMMA, BMMA or HGMMA), then its
+    dynamic shared memory at the front end's F = 512.  Fails unless every
+    instance issues tensor-core instructions and none spills."""
+    import re
+
+    from photometric_bundle_adjustment_tpu_torch.ops import _build, hamming
+
+    cuobjdump = _build._nvcc().rsplit("/", 1)[0] + "/cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, _build.load("hamming")._name],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
+    def per_function(text, pattern):
+        out, fn = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Function\s*:?\s*(\w+)", line)
+            if m:
+                fn = m.group(1)
+                out.setdefault(fn, [])
+            elif fn:
+                out[fn] += re.findall(pattern, line)
+        return out
+
+    res = per_function(dump("-res-usage"), r"(REG|STACK|LOCAL):(\d+)")
+    mma = per_function(dump("-sass"), r"\b(IMMA|BMMA|HGMMA)\b")
+    for fn in sorted(mma):
+        # hamming_kernel<kBoth>
+        tag = re.search(r"hamming_kernelILb(\d)E", fn)
+        if not tag:
+            continue
+        both = tag.group(1) == "1"
+        usage = dict((k, int(v)) for k, v in res.get(fn, []))
+        ops = {op: mma[fn].count(op) for op in sorted(set(mma[fn]))}
+        print(f"  hamming, {'both directions' if both else 'forward'}: "
+              f"{usage.get('REG', 'not read')} registers, stack "
+              f"{usage.get('STACK', 'not read')} B, local "
+              f"{usage.get('LOCAL', 'not read')} B; tensor-core SASS "
+              f"{', '.join(f'{k} x{v}' for k, v in ops.items()) or 'none'}")
+        check(usage.get("STACK", 0) == 0 and usage.get("LOCAL", 0) == 0,
+              f"{fn} spills registers")
+        check(sum(ops.values()) > 0, f"{fn} issues no tensor-core "
+              f"instruction")
+    print(f"  hamming: {hamming.smem_bytes(512, 512, True)} B of shared "
+          f"memory a block at F = 512, both directions "
+          f"({hamming.smem_bytes(512, 512, False)} B forward)")
+
+
+def mma_rates(device) -> dict:
+    """The card's sustained mma.sync rate, in operations per second, of
+    the b1 AND+POPC form (the Hamming kernel's product) and the s8 form:
+    ``csrc/mma_rate.cu`` at 4 blocks of 8 warps per SM, the best of 3
+    launches of each timed with CUDA events after one warm-up."""
+    import ctypes
+
+    from photometric_bundle_adjustment_tpu_torch.ops import _build
+
+    fn = _build.load("mma_rate").mma_rate
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ops = ctypes.c_longlong()
+    rates = {}
+    for form, (code, iters) in {"b1": (0, 2048), "s8": (1, 8192)}.items():
+        def run():
+            err = fn(code, blocks, iters, sink.data_ptr(), ctypes.byref(ops),
+                     stream)
+            check(err == 0, f"mma_rate {form} failed to launch ({err})")
+        run()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        rates[form] = ops.value / (min(times) / 1e3)
+        print(f"  mma.sync {form}: {rates[form] / 1e12:.1f} TOP/s sustained "
+              f"({ops.value:.3e} operations in {min(times):.4f} ms, best of "
+              f"3; the data sheet's dense int8 peak, for wgmma, is 1,979)")
+    return rates
+
+
 def int_mm_best_two(desc, valid):
     """The Hamming best-two of every ordered image pair through the int8
     tensor cores, as one PyTorch library call per image: descriptors as
@@ -842,27 +939,32 @@ def int_mm_best_two(desc, valid):
     return out
 
 
-def hamming_bound_ms(valid, a, b, F) -> tuple[float, str]:
+def hamming_bound_ms(valid, a, b, F, b1_rate) -> tuple[float, str]:
     """Least time of the all-pairs best-two (both directions) on these
     inputs: the larger of the bytes (descriptor stack, masks and pair
     indices read once, three (P, F) int32 outputs per direction written
-    once) over the memory rate, and the int8 operations of one bit-plane
-    product per pair between its valid descriptors (2 x 256 per distance;
-    one product serves both directions) over the int8 tensor-core rate."""
+    once) over the memory rate, and the operations of one 256-term product
+    per pair between its valid descriptors (2 x 256 per distance; one
+    product serves both directions) over the faster of the two routes:
+    int8 bit planes at the data sheet's peak, or b1 words at ``b1_rate``,
+    the sustained rate phase 0 measured."""
     n = valid.sum(1).double()
     P = a.numel()
     ops = float((n[a] * n[b]).sum()) * 256 * 2
     nbytes = valid.numel() * (32 + 1) + 2 * 2 * 4 * P + 2 * 3 * 4 * P * F
-    t_ops, t_bytes = ops / H100_INT8_OPS_PER_S, nbytes / H100_BYTES_PER_S
-    print(f"  bound: {ops:.3e} int8 operations ({1e3 * t_ops:.4f} ms at "
-          f"1,979 TOP/s), {nbytes / 1e6:.1f} MB ({1e3 * t_bytes:.4f} ms at "
-          f"3.35 TB/s)")
+    t_int8, t_b1 = ops / H100_INT8_OPS_PER_S, ops / b1_rate
+    t_ops, t_bytes = min(t_int8, t_b1), nbytes / H100_BYTES_PER_S
+    print(f"  bound: {ops:.3e} operations ({1e3 * t_int8:.4f} ms as int8 at "
+          f"1,979 TOP/s, {1e3 * t_b1:.4f} ms as b1 at the measured "
+          f"{b1_rate / 1e12:.1f}), {nbytes / 1e6:.1f} MB ({1e3 * t_bytes:.4f} "
+          f"ms at 3.35 TB/s)")
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def front_end_phase(device):
-    """Phase 3: the SfM front end at EuRoC V1's size.  Returns the
-    Hamming kernel's JSON fields."""
+def front_end_phase(device, b1_rate):
+    """Phase 3: the SfM front end at EuRoC V1's size; ``b1_rate`` is phase
+    0's measured b1 mma rate, for the Hamming bound.  Returns the Hamming
+    kernel's JSON fields."""
     from photometric_bundle_adjustment_tpu_torch import interop
     from photometric_bundle_adjustment_tpu_torch.features import (
         describe,
@@ -930,8 +1032,8 @@ def front_end_phase(device):
     check(P == FRONT_FRAMES * (FRONT_FRAMES - 1) * 2,
           f"worklist has {P} pairs")
     print(f"  Hamming kernel launches on the path: {launches}")
-    check(launches == 4, f"Hamming launches {launches} != 2 for "
-          f"match_stereo + 2 for match_pairs")
+    check(launches == 2, f"Hamming launches {launches} != 1 for "
+          f"match_stereo + 1 for match_pairs")
 
     # stereo inliers against the rendered ground truth
     close = 0
@@ -978,12 +1080,10 @@ def front_end_phase(device):
     b = torch.as_tensor(ids[:, 1], device=device)
 
     def kernel_both():
-        return (hamming.best_two_nn(desc, desc, valid, a, b)
-                + hamming.best_two_nn(desc, desc, valid, b, a))
+        return hamming.best_two_both(desc, valid, desc, valid, a, b)
 
     def plain_both():
-        return (hamming.best_two_nn_reference(desc, desc, valid, a, b)
-                + hamming.best_two_nn_reference(desc, desc, valid, b, a))
+        return hamming.best_two_both_reference(desc, valid, desc, valid, a, b)
 
     out, ref = kernel_both(), plain_both()
     torch.cuda.synchronize()
@@ -1000,17 +1100,16 @@ def front_end_phase(device):
 
     plain_ms = [time_ms(plain_both, device, reps=1, warmup=0)]
     ms = [time_ms(kernel_both, device, reps=10, warmup=1)]
-    library_ms = [time_ms(lambda: int_mm_best_two(desc, valid), device,
-                          reps=2, warmup=1)]
+    library_ms = time_ms(lambda: int_mm_best_two(desc, valid), device,
+                         reps=2, warmup=1)
     ms.append(time_ms(kernel_both, device, reps=10, warmup=0))
     plain_ms.append(time_ms(plain_both, device, reps=1, warmup=0))
     ms, plain_ms = float(np.mean(ms)), float(np.mean(plain_ms))
-    library_ms = float(library_ms[0])
-    print(f"  all-pairs best-two, both directions: kernel {ms:.4f} ms "
-          f"({P / ms * 1e3:.0f} pairs/s), plain {plain_ms:.4f} ms, "
-          f"_int_mm form {library_ms:.4f} ms over all {n_img}^2 ordered "
+    print(f"  all-pairs best-two, both directions in one launch: kernel "
+          f"{ms:.4f} ms ({P / ms * 1e3:.0f} pairs/s), plain {plain_ms:.4f} "
+          f"ms, _int_mm form {library_ms:.4f} ms over all {n_img}^2 ordered "
           f"pairs (CUDA events; plain/kernel/library/kernel/plain)")
-    bound_ms, bound_by = hamming_bound_ms(valid, a, b, F)
+    bound_ms, bound_by = hamming_bound_ms(valid, a, b, F, b1_rate)
     print(f"  bound {bound_ms:.4f} ms ({bound_by}): the kernel at "
           f"{bound_ms / ms:.1%} of it")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
@@ -1045,6 +1144,8 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 print(f"  {name}: {line.strip()}")
+    hamming_resources()
+    rates = mma_rates(device)
 
     t0 = time.perf_counter()
     pipe = synthetic.synth_pba_pipe(seed=SEED, **EUROC)
@@ -1053,7 +1154,7 @@ def main() -> int:
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
     max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
-    front = front_end_phase(device)
+    front = front_end_phase(device, rates["b1"])
     sampler = sampler_phase(pipe0, device, se3)
     bf16 = dense_phase(pipe5, device, se3)
     grid, window = probe_phase(device)

@@ -17,9 +17,11 @@ that the f64 product equals: at ratio 1.2, (best, second) = (25, 30),
 (45, 54) and (50, 60) are rejected here and accepted in double.  At
 (60, 72), both round to exactly 72 and accept.
 
-Both directions go through ``ops.hamming.best_two_nn``: on CUDA tensors
-the Hamming kernel, one launch per direction for a whole worklist of
-pairs; on CPU tensors its plain version.  No flag chooses between them.
+Both directions come from one call of ``ops.hamming.best_two_both``: on
+CUDA tensors the Hamming kernel, one launch for a whole worklist of pairs
+and both directions, from one distance tile (Hamming distance is
+symmetric, as the JAX package's XLA route uses); on CPU tensors its plain
+version.  No flag chooses between them.
 Descriptors are int32 words holding the JAX package's uint32 bits;
 results use -1 for "no match".
 """
@@ -61,8 +63,8 @@ def match_batch(desc1, valid1, desc2, valid2, a, b, threshold: int = 70,
     dev = desc1.device
     a = torch.as_tensor(a, dtype=torch.int64, device=dev).reshape(-1)
     b = torch.as_tensor(b, dtype=torch.int64, device=dev).reshape(-1)
-    b1, s1, i1 = hamming.best_two_nn(desc1, desc2, valid2, a, b)
-    b2, s2, i2 = hamming.best_two_nn(desc2, desc1, valid1, b, a)
+    b1, s1, i1, b2, s2, i2 = hamming.best_two_both(desc1, valid1, desc2,
+                                                   valid2, a, b)
     m12 = _one_way(b1, s1, i1, valid1[a], threshold, ratio)
     m21 = _one_way(b2, s2, i2, valid2[b], threshold, ratio)
     return _mutual(m12, m21)

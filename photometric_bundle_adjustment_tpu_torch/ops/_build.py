@@ -27,7 +27,7 @@ NVCC_FLAGS = (
 
 # every source of csrc/, in the order chip_smoke.py prints their builds
 SOURCES = ("pba_mega", "hamming", "patch_sample", "grid_overhead",
-           "exp_roll")
+           "exp_roll", "mma_rate")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc output) for the builds this process ran

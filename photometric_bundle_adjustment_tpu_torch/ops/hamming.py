@@ -1,23 +1,33 @@
 """Brute-force 256-bit Hamming best-two matching over a worklist of pairs.
 
 Port of the Pallas TPU kernel ``photometric_bundle_adjustment_tpu/ops/
-hamming.py`` (``_match_kernel``, launched by ``best_two_nn``).  For every
-row of ``desc1[a[p]]``: the best and second-best Hamming distance and the
-best index against the valid rows of ``desc2[b[p]]``, ties going to the
-lowest index, invalid rows reading as ``BIG``.
+hamming.py`` (``_match_kernel``, launched by ``best_two_nn`` once per
+match direction).  For every row of ``desc1[a[p]]``: the best and
+second-best Hamming distance and the best index against the valid rows of
+``desc2[b[p]]``, ties going to the lowest index, invalid rows reading as
+``BIG``; ``best_two_both`` also gives the same for every row of
+``desc2[b[p]]`` against the valid rows of ``desc1[a[p]]``, from the same
+distances (Hamming distance is symmetric).
 
 Descriptors are (…, 8) words of 256 bits.  The JAX package holds them as
 uint32; the port holds the same bits as int32 (``interop``), because
 torch's uint32 supports few operations, and the kernel reads them as
 ``uint32_t``.
 
-Two forms:
+Two forms of each function:
 
-- ``best_two_nn`` launches the CUDA kernel of ``csrc/hamming.cu`` on CUDA
-  tensors: one launch for the whole worklist.  On CPU tensors it runs the
-  plain version.  It never falls back from the card.
-- ``best_two_nn_reference``: the popcount distance matrix plus
-  ``best_two_from`` in plain torch, in chunks of pairs.
+- ``best_two_both`` and ``best_two_nn`` launch the CUDA kernel of
+  ``csrc/hamming.cu`` on CUDA tensors: one launch for the whole worklist,
+  both directions from one distance tile on the tensor cores
+  (``best_two_nn`` runs the same kernel without the column epilogue).
+  The kernel refuses descriptor blocks whose staging does not fit in a
+  block's shared memory (``smem_bytes``).  On
+  CPU tensors they run the plain versions.  They never fall back from the
+  card.
+- ``best_two_both_reference`` and ``best_two_nn_reference``: the popcount
+  distance matrix plus ``best_two_from`` in plain torch, in chunks of
+  pairs; the first reduces one matrix along both axes, as the JAX
+  package's XLA route does.
 
 The TPU kernel masks by a count of valid columns; both forms here take
 the mask itself (see ``csrc/hamming.cu``).
@@ -35,6 +45,8 @@ BIG = 1 << 20
 WORDS = 8
 # pairs per distance matrix in the plain version (SfmConfig.match_chunk_pairs)
 CHUNK_PAIRS = 32
+# what the kernel's entry returns for blocks too large for shared memory
+CUDA_ERROR_INVALID_VALUE = 1
 
 KERNEL_LAUNCHES = 0
 
@@ -105,25 +117,62 @@ def best_two_nn_reference(desc1, desc2, valid2, a, b):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def _kernel_fn():
-    fn = _build.load("hamming").hamming_best_two
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int,                    # d1, N1
+def best_two_both_reference(desc1, valid1, desc2, valid2, a, b):
+    """Plain version of the kernel in both directions: one distance
+    matrix per chunk of pairs, reduced along both axes.  Returns
+    (best12, second12, idx12), each (P, N1), equal to
+    ``best_two_nn_reference(desc1, desc2, valid2, a, b)``, and
+    (best21, second21, idx21), each (P, N2), equal to
+    ``best_two_nn_reference(desc2, desc1, valid1, b, a)``; all int32."""
+    dev = desc1.device
+    a, b = _pair_index(a, dev), _pair_index(b, dev)
+    N1, N2 = desc1.shape[1], desc2.shape[1]
+    big = torch.tensor(BIG, dtype=torch.int32, device=dev)
+    outs = []
+    for s in range(0, a.shape[0], CHUNK_PAIRS):
+        aa, bb = a[s:s + CHUNK_PAIRS], b[s:s + CHUNK_PAIRS]
+        dist = hamming_matrix(desc1[aa], desc2[bb])
+        outs.append(
+            best_two_from(torch.where(valid2[bb][:, None, :], dist, big), 2)
+            + best_two_from(torch.where(valid1[aa][:, :, None], dist, big), 1))
+    if not outs:
+        return tuple(torch.empty((0, n), dtype=torch.int32, device=dev)
+                     for n in (N1, N1, N1, N2, N2, N2))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, its entry points bound once."""
+    lib = _build.load("hamming")
+    if lib.hamming_best_two.argtypes is None:
+        lib.hamming_best_two.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # d1, valid1, N1
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # d2, valid2, N2
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,   # a, b, P
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs
-            ctypes.c_void_p,                                  # stream
+            ctypes.c_void_p, ctypes.c_void_p,                 # outputs, stream
         ]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.hamming_best_two.restype = ctypes.c_int
+        lib.hamming_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.hamming_smem_bytes.restype = ctypes.c_longlong
+        lib.hamming_error_string.argtypes = [ctypes.c_int]
+        lib.hamming_error_string.restype = ctypes.c_char_p
+    return lib
 
 
-def _check_kernel_inputs(desc1, desc2, valid2, a, b):
+def smem_bytes(N1: int, N2: int, both: bool = True) -> int:
+    """Dynamic shared memory of one block of the kernel for blocks of N1
+    and N2 descriptors (both staged, plus the key bases and, for both
+    directions, the column partials)."""
+    return int(_lib().hamming_smem_bytes(N1, N2, int(both)))
+
+
+def _check_kernel_inputs(desc1, valid1, desc2, valid2, a, b):
     dev = desc1.device
-    for name, t, dim, dtype in [("desc1", desc1, 3, torch.int32),
-                                ("desc2", desc2, 3, torch.int32),
-                                ("valid2", valid2, 2, torch.bool)]:
+    checks = [("desc1", desc1, 3, torch.int32), ("desc2", desc2, 3, torch.int32),
+              ("valid2", valid2, 2, torch.bool)]
+    if valid1 is not None:
+        checks.append(("valid1", valid1, 2, torch.bool))
+    for name, t, dim, dtype in checks:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, desc1 on {dev}")
         if t.dtype != dtype:
@@ -132,9 +181,10 @@ def _check_kernel_inputs(desc1, desc2, valid2, a, b):
             raise ValueError(f"{name} has shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tuple(valid2.shape) != tuple(desc2.shape[:2]):
-        raise ValueError(f"valid2 {tuple(valid2.shape)} does not match desc2 "
-                         f"{tuple(desc2.shape)}")
+    for name, v, d in (("valid1", valid1, desc1), ("valid2", valid2, desc2)):
+        if v is not None and tuple(v.shape) != tuple(d.shape[:2]):
+            raise ValueError(f"{name} {tuple(v.shape)} does not match its "
+                             f"descriptors {tuple(d.shape)}")
     if desc1.data_ptr() % 16 or desc2.data_ptr() % 16:
         raise ValueError("descriptor stacks must be 16-byte aligned")
     if a.shape != b.shape:
@@ -145,39 +195,61 @@ def _check_kernel_inputs(desc1, desc2, valid2, a, b):
         raise ValueError("pair indices out of range of the descriptor stacks")
 
 
+def _launch(desc1, valid1, desc2, valid2, a, b):
+    """One kernel launch over the worklist on the current stream: the
+    forward outputs, and the backward ones too when ``valid1`` is given."""
+    global KERNEL_LAUNCHES
+    dev = desc1.device
+    if dev.type != "cuda":
+        raise ValueError(f"hamming kernel: unsupported device {dev}")
+    a = torch.as_tensor(a, device=dev).to(torch.int32).reshape(-1).contiguous()
+    b = torch.as_tensor(b, device=dev).to(torch.int32).reshape(-1).contiguous()
+    P, N1, N2 = a.shape[0], desc1.shape[1], desc2.shape[1]
+    widths = (N1,) * 3 + ((N2,) * 3 if valid1 is not None else ())
+    outs = [torch.empty((P, n), dtype=torch.int32, device=dev) for n in widths]
+    if P == 0:
+        return tuple(outs)
+    _check_kernel_inputs(desc1, valid1, desc2, valid2, a, b)
+    lib = _lib()
+    ptrs = (ctypes.c_void_p * 6)(*[o.data_ptr() for o in outs])
+    err = lib.hamming_best_two(
+        desc1.data_ptr(), 0 if valid1 is None else valid1.data_ptr(), N1,
+        desc2.data_ptr(), valid2.data_ptr(), N2, a.data_ptr(), b.data_ptr(),
+        P, ctypes.addressof(ptrs), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = f"{lib.hamming_error_string(err).decode()} ({err})"
+        if err == CUDA_ERROR_INVALID_VALUE:
+            raise ValueError(
+                f"hamming_best_two refused N1={N1}, N2={N2}: {msg}; a block "
+                f"would stage {smem_bytes(N1, N2, valid1 is not None)} bytes "
+                f"in shared memory, past the kernel's limit")
+        raise RuntimeError(f"hamming_best_two launch failed: {msg}")
+    KERNEL_LAUNCHES += 1
+    return tuple(outs)
+
+
 def best_two_nn(desc1, desc2, valid2, a, b):
     """(best, second, idx), each (P, N1) int32, for the rows of
     ``desc1[a[p]]`` against ``desc2[b[p]]``; arguments as
     ``best_two_nn_reference``.
 
     On CUDA tensors it launches the kernel of ``csrc/hamming.cu`` once for
-    the whole worklist on the current stream (or raises); on CPU tensors it
-    runs the plain version."""
-    global KERNEL_LAUNCHES
-    dev = desc1.device
-    if dev.type == "cpu":
+    the whole worklist on the current stream, without the column
+    epilogue (or raises); on CPU tensors it runs the plain version."""
+    if desc1.device.type == "cpu":
         return best_two_nn_reference(desc1, desc2, valid2, a, b)
-    if dev.type != "cuda":
-        raise ValueError(f"best_two_nn: unsupported device {dev}")
-    a = torch.as_tensor(a, device=dev).to(torch.int32).reshape(-1).contiguous()
-    b = torch.as_tensor(b, device=dev).to(torch.int32).reshape(-1).contiguous()
-    P, N1 = a.shape[0], desc1.shape[1]
-    outs = [torch.empty((P, N1), dtype=torch.int32, device=dev)
-            for _ in range(3)]
-    if P == 0:
-        return tuple(outs)
-    _check_kernel_inputs(desc1, desc2, valid2, a, b)
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(desc1.data_ptr(), N1, desc2.data_ptr(), valid2.data_ptr(),
-             desc2.shape[1], a.data_ptr(), b.data_ptr(), P,
-             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-             stream)
-    if err != 0:
-        lib = _build.load("hamming")
-        lib.hamming_error_string.restype = ctypes.c_char_p
-        lib.hamming_error_string.argtypes = [ctypes.c_int]
-        msg = lib.hamming_error_string(err).decode()
-        raise RuntimeError(f"hamming_best_two launch failed: {msg} ({err})")
-    KERNEL_LAUNCHES += 1
-    return tuple(outs)
+    return _launch(desc1, None, desc2, valid2, a, b)
+
+
+def best_two_both(desc1, valid1, desc2, valid2, a, b):
+    """Both match directions of every pair from one distance tile:
+    (best12, second12, idx12), each (P, N1), and (best21, second21,
+    idx21), each (P, N2), int32; arguments and results as
+    ``best_two_both_reference``.
+
+    On CUDA tensors it launches the kernel of ``csrc/hamming.cu`` once for
+    the whole worklist on the current stream (or raises); on CPU tensors
+    it runs the plain version."""
+    if desc1.device.type == "cpu":
+        return best_two_both_reference(desc1, valid1, desc2, valid2, a, b)
+    return _launch(desc1, valid1, desc2, valid2, a, b)

@@ -130,7 +130,7 @@ class SfmPipeline:
     def match_stereo(self):
         """Stereo pairs with known extrinsics plus the epipolar check
         (sfm.cpp:1217-1272).  Every stereo pair is matched in one batch:
-        one Hamming kernel launch per direction on the card."""
+        one Hamming kernel launch on the card for both directions."""
         t0 = time.time()
         cfg = self.cfg
         dev = self.device

@@ -6,16 +6,18 @@ Renders the stereo sequence ``chip_smoke.py`` drives (82 stereo frames,
 164 images of 480x752, seed 0), runs the front end once to warm up, and
 then:
 
-  * times each stage to a device sync on the host clock:
-    ``SfmPipeline.detect_keypoints``, ``match_stereo`` and
-    ``pair_matching.match_pairs`` over the 13,284-pair worklist, and its
-    compaction ``match.matches_to_pairs`` on the device;
+  * times each stage to a device sync on the host clock, the median of
+    ``--reps`` warm calls: ``SfmPipeline.detect_keypoints``,
+    ``match_stereo`` and ``pair_matching.match_pairs`` over the
+    13,284-pair worklist (with the Hamming kernel launches a call makes:
+    one, for both match directions), and its compaction
+    ``match.matches_to_pairs`` on the device;
   * times the pieces of one detection batch of 8 images, mean of
     ``--reps`` calls (CUDA events on a GPU, the host clock on the CPU):
     ``shi_tomasi_score``, ``detect_keypoints``, ``compute_angles`` and
     ``compute_descriptors``;
-  * runs ``detect_keypoints`` and the all-pairs match once each under
-    ``torch.profiler``: wall time, device busy time and share, device
+  * runs ``detect_keypoints``, ``match_stereo`` and the all-pairs match
+    once each under ``torch.profiler``: wall time, device busy time and share, device
     kernels, and the operators with the largest device self time;
   * reports the peak device memory.
 
@@ -41,6 +43,7 @@ from photometric_bundle_adjustment_tpu_torch.features import (
     pair_matching,
 )
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
+from photometric_bundle_adjustment_tpu_torch.ops import hamming
 from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
     SfmPipeline,
 )
@@ -53,16 +56,20 @@ from photometric_bundle_adjustment_tpu_torch.profile_solve import (
 BATCH = 8
 
 
-def _synced(fn, device: torch.device):
-    """``fn`` followed by a device sync, and its wall milliseconds."""
+def _synced(fn, device: torch.device, reps: int):
+    """``fn`` followed by a device sync; the output of its last call and
+    the median wall milliseconds of ``reps`` calls."""
     def run():
         out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out
-    t0 = time.perf_counter()
-    out = run()
-    return run, out, 1e3 * (time.perf_counter() - t0)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return run, out, float(np.median(times))
 
 
 def main(argv=None) -> dict:
@@ -93,12 +100,15 @@ def main(argv=None) -> dict:
             desc, valid, ids[:, 0], ids[:, 1], cfg.feature_match_max_dist,
             cfg.feature_match_test_next_best)
 
-    detect_run, _, detect_ms = _synced(pipe.detect_keypoints, device)
-    _, _, stereo_ms = _synced(pipe.match_stereo, device)
-    pairs_run, table, pairs_ms = _synced(all_pairs, device)
+    reps = args.reps
+    detect_run, _, detect_ms = _synced(pipe.detect_keypoints, device, reps)
+    stereo_run, _, stereo_ms = _synced(pipe.match_stereo, device, reps)
+    launches = hamming.KERNEL_LAUNCHES
+    pairs_run, table, pairs_ms = _synced(all_pairs, device, reps)
+    launches = (hamming.KERNEL_LAUNCHES - launches) / reps
     _, _, compact_ms = _synced(
         lambda: match.matches_to_pairs(table, cfg.max_matches_per_pair),
-        device)
+        device, reps)
     stages_ms = dict(detect_ms=detect_ms, match_stereo_ms=stereo_ms,
                      match_pairs_ms=pairs_ms, compact_ms=compact_ms)
 
@@ -122,22 +132,27 @@ def main(argv=None) -> dict:
             imgs, uv, angles)),
     )
     prof_detect = profile_run(detect_run, 1, device)
+    prof_stereo = profile_run(stereo_run, 1, device)
     prof_pairs = profile_run(pairs_run, 1, device)
     result = dict(
         device=torch.cuda.get_device_name(device) if gpu else "cpu",
         images=len(pipe.fcids), H=args.H, W=args.W, pairs=len(ids),
-        F=int(desc.shape[1]), reps=args.reps, **stages_ms, **batch_ms,
-        detect_profile=prof_detect, match_pairs_profile=prof_pairs,
+        F=int(desc.shape[1]), reps=args.reps, **stages_ms,
+        match_pairs_hamming_launches=launches, **batch_ms,
+        detect_profile=prof_detect, match_stereo_profile=prof_stereo,
+        match_pairs_profile=prof_pairs,
         peak_device_mib=(torch.cuda.max_memory_allocated(device) / 2**20
                          if gpu else None),
     )
     print(f"profile_frontend: {result['device']}, {result['images']} images "
           f"of {args.H}x{args.W}, {result['pairs']} pairs at F={result['F']}")
     for k, v in stages_ms.items():
-        print(f"  {k} {v:.4f} (one call, to a device sync)")
+        print(f"  {k} {v:.4f} (median of {reps} calls, to a device sync)")
+    print(f"  Hamming kernel launches per match_pairs call: {launches:g}")
     for k, v in batch_ms.items():
         print(f"  {k} {v:.4f} (batch of {BATCH}, mean of {args.reps})")
     for name, p in (("detect_keypoints", prof_detect),
+                    ("match_stereo", prof_stereo),
                     ("match_pairs", prof_pairs)):
         print(f"  {name} under the profiler: wall {p['wall_ms']:.3f} ms"
               + (f", device busy {p['device_busy_ms']:.3f} ms "

@@ -192,6 +192,54 @@ def test_hamming_kernel_bit_identical(cuda, kind):
         assert bool((o[1] == second).all())
 
 
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_hamming_both_kernel_bit_identical(cuda, kind):
+    """One launch gives both directions, bit for bit the plain version's:
+    one stack on both sides, two stacks of ragged sizes (I1 != I2, N1 =
+    300 against N2 = 77), N = 1, and all-false or one-valid masks."""
+    desc, valid = _descriptor_stack(kind)
+    d = interop.descriptors_from_numpy(desc, cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    d2, v2 = d[:4, :77].contiguous(), v[:4, :77].contiguous()
+    one = torch.zeros_like(v)
+    one[:, 3] = True
+    ids = np.array([(i, j) for i in range(6) for j in range(6)])
+    cases = [(d, v, d, v, ids[:, 0], ids[:, 1]),
+             (d, v, d2, v2, ids[:, 0], ids[:, 1] % 4),
+             (d[:, :1].contiguous(), v[:, :1].contiguous(),
+              d[:, 5:6].contiguous(), v[:, 5:6].contiguous(), [0, 3], [1, 3]),
+             (d, torch.zeros_like(v), d2, torch.zeros_like(v2), [0, 5], [1, 2]),
+             (d, one, d, one, [0, 1, 4], [2, 1, 3])]
+    for d1_, v1_, d2_, v2_, a, b in cases:
+        before = hamming.KERNEL_LAUNCHES
+        out = hamming.best_two_both(d1_, v1_, d2_, v2_, a, b)
+        torch.cuda.synchronize()
+        assert hamming.KERNEL_LAUNCHES == before + 1
+        ref = hamming.best_two_both_reference(d1_, v1_, d2_, v2_, a, b)
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r)
+        fwd = hamming.best_two_nn(d1_, d2_, v2_, a, b)
+        assert all(torch.equal(o, r) for o, r in zip(fwd, ref[:3]))
+        if kind == "ties" and d1_ is d2_ and v1_ is v:
+            assert bool((out[0] == out[1]).any() and (out[3] == out[4]).any())
+
+
+def test_hamming_both_wrapper_rejects_bad_inputs(cuda):
+    desc, valid = _descriptor_stack("random")
+    d = interop.descriptors_from_numpy(desc, cuda)
+    v = torch.as_tensor(valid, device=cuda)
+    with pytest.raises(ValueError, match="valid1"):
+        hamming.best_two_both(d, v[:, :10], d, v, [0], [1])
+    with pytest.raises(ValueError, match="valid1 must be"):
+        hamming.best_two_both(d, v.int(), d, v, [0], [1])
+    with pytest.raises(ValueError, match="out of range"):
+        hamming.best_two_both(d, v, d, v, [6], [1])
+    big = torch.zeros((1, 8000, 8), dtype=torch.int32, device=cuda)
+    vbig = torch.ones((1, 8000), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        hamming.best_two_both(big, vbig, big, vbig, [0], [0])
+
+
 def test_hamming_wrapper_rejects_bad_inputs(cuda):
     desc, valid = _descriptor_stack("random")
     d = interop.descriptors_from_numpy(desc, cuda)

@@ -149,6 +149,7 @@ def test_profile_frontend_on_plain_path():
     for k in ("detect_ms", "match_stereo_ms", "match_pairs_ms", "batch_ms",
               "shi_tomasi_ms", "compute_descriptors_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
-    for p in (res["detect_profile"], res["match_pairs_profile"]):
+    for p in (res["detect_profile"], res["match_stereo_profile"],
+              res["match_pairs_profile"]):
         assert p["top_self_ms"] and p["device_busy_ms"] is None
     assert res["peak_device_mib"] is None
