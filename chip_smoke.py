@@ -10,18 +10,24 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      ``photometric_bundle_adjustment_tpu_torch/csrc`` (one nvcc each, all
      started together) and time the build; print each Hamming kernel
      instance's registers, spills and tensor-core instruction count (from
-     ``cuobjdump``) and its shared memory; measure the card's sustained
-     mma.sync rate in the b1 and s8 forms (``csrc/mma_rate.cu``);
-  1. the megakernel against its plain PyTorch version on the card, at
-     EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
-     observations, some warped off the image, one non-finite) and on a
-     small image 8448 pixels wide; both timed on the device (CUDA
-     graphs of 20 calls), the kernel also through its wrapper;
-  2. the photometric path: ``refine_photometric`` on a synthetic
-     EuRoC-scale map (3 pyramid levels, 20 iterations, Huber 9), checking
-     that the cost falls at every level, that the result is finite, that
-     the pose error against ground truth shrank and that every kernel of
-     the path ran;
+     ``cuobjdump``) and its shared memory, and each megakernel instance's
+     registers and spills; measure the card's sustained mma.sync rate in
+     the b1 and s8 forms (``csrc/mma_rate.cu``);
+  1. the megakernel (the warp computed inside it) against its plain
+     PyTorch version (``warp_slabs`` + ``mega_rj_reference``) on the
+     card, at EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
+     observations; a state pushed so that some observations leave the
+     image, some lie behind the camera and some are not finite), in both
+     thread mappings and both column orders (sorted by target image, the
+     problem's own), all four timed on the device (CUDA graphs of 20
+     calls), the default also against the plain version and through its
+     wrapper; then on a pinhole toy state 8448 pixels wide;
+  2. the photometric path: two first builds of the map's level-0 solver
+     bit-equal, then ``refine_photometric`` on the synthetic EuRoC-scale
+     map (3 pyramid levels, 20 iterations, Huber 9), checking that the
+     cost falls at every level, that the result is finite, that the pose
+     error against ground truth shrank and that the megakernel launched
+     once per build;
   3. the SfM front end at EuRoC V1's size (82 stereo frames, 164 images of
      480x752, 1500 detection slots): ``SfmPipeline.detect_keypoints``,
      ``match_stereo`` and ``pair_matching.match_pairs`` over the whole
@@ -35,22 +41,24 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      ``torch._int_mm`` form, all three timed with CUDA events;
   4. the patch sampler and the two kernel-sampled fused solvers:
      (a) the sampler kernel against its plain version at EuRoC scale, on
-     the ``imagesort_problem`` layout of phase 2's map at level 0 with the
-     warped level-0 coordinates (some pushed off the image, one at -1e6),
-     timed on the device (CUDA graphs of 20 calls) beside one
-     ``grid_sample`` call, the kernel also through its wrapper; (b)
-     ``make_kernel_fused_solver`` on that map from its initial state (20
-     iterations, Huber 9, the classic loop), checking that the cost falls,
-     the result is finite, the pose error shrank, the first build equals
-     the gather solver's on the card and the sampler launched once per
-     build and residual pass; (c) ``make_kernel_dense_solver`` on
-     ``euroc_scale_pba`` in the slot-major layout (20 iterations, Huber 9,
-     the fused-cost loop), with the same checks but the pose error;
+     the observation rows of phase 2's map at level 0, in their own order,
+     with the warped level-0 coordinates (some pushed off the image, one
+     at -1e6) and a few zero columns, timed on the device (CUDA graphs of
+     20 calls) beside one ``grid_sample`` call, the kernel also through
+     its wrapper; (b) ``make_kernel_fused_solver`` on that map from its
+     initial state (20 iterations, Huber 9, the classic loop), checking
+     that the cost falls, the result is finite, the pose error shrank,
+     the first build equals the gather solver's on the card and repeats
+     bit for bit, and the sampler launched once per build and residual
+     pass; (c) ``make_kernel_dense_solver`` on ``euroc_scale_pba`` in the
+     slot-major layout (20 iterations, Huber 9, the fused-cost loop),
+     with the same checks but the pose error;
   5. the dense slot-major megakernel family and the kernel's bf16 tier on
      ``euroc_scale_pba`` at full size (164 noise images of 480x752, 24,000
      observations in 6 x 4,800 slot rows): (a) the dense family's first
      build and damped solve against the chunk family's on the same
-     problem; (b) the bf16 kernel against its plain version on the widened
+     problem, and two first builds bit-equal in each tier; (b) the bf16
+     kernel against its plain version on the widened
      stack, timed on the device beside its plain version and the f32
      kernel on the same inputs; (c) ``make_mega_solver(..., plan_slot)`` in
      f32 and in bf16 (20 iterations, Huber 9, the fused-cost loop),
@@ -66,9 +74,10 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      plain version, timed beside one ``torch.roll``).
 
 Then it prints one JSON line describing the six kernels (the megakernel's
-f32 and bf16 entries, the Hamming best-two, the patch sampler, the grid
+f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
 probe and the window read), the card line again, and as the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The bounds of the megakernel and the
+sampler charge their output on observation columns only.
 
 Without CUDA it exits with code 2 and prints no result.
 
@@ -103,16 +112,24 @@ LEVELS, MAX_ITERATIONS, HUBER = 3, 20, 9.0
 COST_RTOL = 1e-5
 COST_FMA_ULPS = 8
 ROWS_ATOL = 1e-4        # times max|ref| of each row block
+# The fused kernel computes the warp itself: its pixel coordinates differ
+# from the plain version's by a few ulps (FMA) of the projection's scale.
+# Each entry's bound adds the first-order move that WARP_ULPS ulps of
+# |u| + fx cause (``warp_bounds``), and a column with a point that close
+# to a pixel edge (the bilinear gradient jumps there) is held only to its
+# NaN pattern and the total cost.
+WARP_ULPS = 16
 
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS_PER_S = 1.979e15
 H100_F32_OPS_PER_S = 67e12
 # megakernel f32 operations per observation, counted from
-# csrc/pba_mega.cu: per patch pixel about 40 for the bilinear value and
-# gradient, 68 for J = gx GA + gy GB and about 10 for the residual and
-# weight (8 pixels: about 950), plus about 550 for the payloads A0 and
-# A1; rounded up
-MEGA_OPS_PER_OBS = 2048
+# csrc/pba_mega.cu: about 150 for the two rotations, M and u; per patch
+# pixel about 12 for q, up to 60 for the projection and its Jacobian
+# (kb4), 58 for the 26 coefficients, 26 for J = gx GA + gy GB, 40 for the
+# bilinear value and gradient and 10 for the residual (8 pixels: about
+# 1,650), plus about 550 for the payloads A0 and A1; rounded up
+MEGA_OPS_PER_OBS = 4096
 
 # the patch sampler against its plain version: a few ulps of the image
 # scale (FMA contraction), as the megakernel's rows
@@ -188,10 +205,68 @@ def pose_errors(cameras: dict, poses_gt: dict, se3):
     return float(xi[:, :3].norm(dim=1).mean()), float(xi[:, 3:].norm(dim=1).mean())
 
 
-def compare_payloads(out, ref, images, label: str) -> float:
+def warp_bounds(ref, images, warp):
+    """What the kernel's own warp may move, column by column: its pixel
+    coordinates differ from the plain version's by up to WARP_ULPS ulps
+    (FMA) of the projection's scale, |u| + fx (the point's coordinates
+    carry ulps of |q|, which the focal length scales; for u near 0 the
+    ulp of u alone would be far too small).  Within a bilinear cell the value moves by |gradient| times that
+    and the x-gradient by |v00 - v01 - v10 + v11| times the y move (the
+    y-gradient likewise), which the Jacobian rows carry through GA and GB
+    and A0, A1 through their products.  Returns (smooth, dr, dJ, dA0,
+    dA1): the columns with no point within WARP_ULPS ulps of a pixel edge
+    (the gradient jumps there, so nothing first-order holds), and first-
+    order bounds of the residual (P, N), the 136 Jacobian rows and the 17
+    rows of A0 and A1."""
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+
+    ux, uy, GA, GB, consts = warp
+    timg = consts.timg
+    P = pba_mega.P
+    N = ux.shape[1]
+    eps = torch.finfo(torch.float32).eps
+    _, H, W = images.shape
+    du = WARP_ULPS * eps * (ux.abs() + consts.intr_t[0].abs())
+    dv = WARP_ULPS * eps * (uy.abs() + consts.intr_t[1].abs())
+    xy = torch.cat([ux, uy]).double()
+    smooth = ~((xy - xy.round()).abs() <= torch.cat([du, dv])).any(0)
+    x = ux.clamp(0, W - 1.001)
+    y = uy.clamp(0, H - 1.001)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    flat = images.float().reshape(-1)
+    base = timg.clamp_min(0).long()[None, :] * (H * W) + y0.long() * W \
+        + x0.long()
+    v00, v01 = flat[base], flat[base + 1]
+    v10, v11 = flat[base + W], flat[base + W + 1]
+    gx = (v01 - v00) * (1 - fy) + (v11 - v10) * fy
+    gy = (v10 - v00) * (1 - fx) + (v11 - v01) * fx
+    cross = (v00 - v01 - v10 + v11).abs()
+    sw = (-ref[15]).abs()[None, :]                # Jacobian column 15 = -sw
+    dr = gx.abs() * du + gy.abs() * dv            # (P, N)
+    dgeo = (GA.abs().reshape(13, P, N) * (cross * dv)
+            + GB.abs().reshape(13, P, N) * (cross * du)) * sw
+    zero = torch.zeros_like(dgeo[:2])
+    dJ = torch.cat([dgeo[0:6], zero, dgeo[6:12], zero, dgeo[12:13]])
+    J = ref[:136].reshape(P, 17, N).permute(1, 0, 2).abs()   # (17, P, N)
+    drsw = dr * sw
+    dA0 = (dJ * J[16] + J * dJ[16]).sum(dim=1)
+    dA1 = (dJ * ref[136:144].abs() + J * drsw).sum(dim=1)
+    return smooth, dr, dJ.permute(1, 0, 2).reshape(136, N), dA0, dA1
+
+
+def compare_payloads(out, ref, images, label: str, warp=None) -> float:
     """Kernel payload against the plain version's; returns max |err| over
     the finite entries.  NaN columns (non-finite projections) must match.
-    ``images`` sets the intensity scale of the cost row's FMA bound."""
+    ``images`` sets the intensity scale of the cost row's FMA bound.
+    Every row block is held at ROWS_ATOL times its max |ref|.
+
+    ``warp`` = (ux, uy, GA, GB, consts), the plain version's warp and the
+    kernel's static columns, where the kernel computed its own warp: then each entry's bound also takes what a
+    move of WARP_ULPS ulps of its coordinates moves (``warp_bounds``), and
+    the columns with a point within WARP_ULPS ulps of a pixel edge are
+    held only to their NaN pattern and the total cost (their count is
+    printed)."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
     cost_k, cost_r = out[pba_mega.ROW_COST], ref[pba_mega.ROW_COST]
@@ -199,6 +274,19 @@ def compare_payloads(out, ref, images, label: str) -> float:
     check(bool((nan_k == nan_r).all()), f"{label}: NaN columns differ")
     ok = ~nan_r
     check(bool(torch.isfinite(out[:, ok]).all()), f"{label}: non-finite output")
+    eps = torch.finfo(torch.float32).eps
+    ulp_img = eps * float(images.abs().max())
+    N = out.shape[1]
+    zero = torch.zeros_like(ref)
+    extra = {"J": zero[:136], "r*sw": zero[136:144], "A0": zero[:17],
+             "A1": zero[:17], "pad": zero[:5]}
+    dr = zero[:8]
+    smooth = ok.clone()
+    if warp is not None:
+        sm, dr, dJ, dA0, dA1 = warp_bounds(ref, images, warp)
+        smooth &= sm
+        extra = {"J": dJ, "r*sw": dr * (-ref[15]).abs()[None, :], "A0": dA0,
+                 "A1": dA1, "pad": zero[:5]}
     rel = ((cost_k[ok] - cost_r[ok]).abs()
            / cost_r[ok].abs().clamp_min(1e-30)).max()
     total_rel = abs(float(cost_k[ok].double().sum() - cost_r[ok].double().sum())
@@ -207,74 +295,108 @@ def compare_payloads(out, ref, images, label: str) -> float:
     for name, rows in [("J", slice(0, 136)), ("r*sw", slice(136, 144)),
                        ("A0", slice(145, 162)), ("A1", slice(162, 179)),
                        ("pad", slice(179, 184))]:
-        a, b = out[rows][:, ok], ref[rows][:, ok]
-        err = float((a - b).abs().max())
+        a, b = out[rows][:, smooth], ref[rows][:, smooth]
+        err = (a - b).abs()
         scale = max(float(b.abs().max()), 1e-6)
-        check(err <= ROWS_ATOL * scale,
-              f"{label}: rows {name} max err {err} > {ROWS_ATOL} * {scale}")
-        max_err = max(max_err, err)
-        blocks.append(f"{name} {err:.2e}/{scale:.2e}")
+        worst = float((err / (ROWS_ATOL * scale + extra[name][:, smooth])
+                       ).max())
+        check(worst <= 1.0, f"{label}: rows {name} beyond {ROWS_ATOL} x "
+              f"{scale:.4e} + the warp's bound ({worst:.3f} of it)")
+        max_err = max(max_err, float(err.max()))
+        blocks.append(f"{name} {float(err.max()):.2e}/{scale:.2e} "
+                      f"({worst:.2f} of bound)")
     # per-observation cost: rtol plus the FMA bound of the residual
-    cost_err = (cost_k[ok] - cost_r[ok]).abs()
-    ulp_img = torch.finfo(torch.float32).eps * float(images.abs().max())
-    r_l1 = ref[136:144][:, ok].abs().sum(dim=0)
-    bound = COST_RTOL * cost_r[ok].abs() + COST_FMA_ULPS * ulp_img * r_l1
-    worst = float((cost_err / bound.clamp_min(1e-30)).max())
+    cost_err = (cost_k - cost_r).abs()
+    bound = COST_RTOL * cost_r.abs() \
+        + (ref[136:144].abs() * (COST_FMA_ULPS * ulp_img + dr)).sum(dim=0)
+    worst = float((cost_err / bound.clamp_min(1e-30))[smooth].max())
     check(worst <= 1.0, f"{label}: cost row beyond rtol {COST_RTOL} + "
-          f"{COST_FMA_ULPS} ulps of the image scale ({worst:.3f} of bound)")
+          f"{COST_FMA_ULPS} ulps of the image scale + the warp's bound "
+          f"({worst:.3f} of it)")
     check(total_rel <= COST_RTOL, f"{label}: total cost rel err {total_rel}")
-    max_err = max(max_err, float(cost_err.max()))
-    print(f"  {label}: {int(ok.sum())} finite columns, {int(nan_r.sum())} NaN; "
-          f"max|err| {max_err:.3e}, cost max rel {float(rel):.3e}, "
-          f"total cost rel {total_rel:.3e}, cost err {worst:.3f} of bound")
+    max_err = max(max_err, float(cost_err[smooth].max()))
+    print(f"  {label}: {int(ok.sum())} of {N} columns finite, "
+          f"{int((ok & ~smooth).sum())} with a point within {WARP_ULPS} ulps "
+          f"of |u| + fx of a pixel edge; max|err| {max_err:.3e}, cost max rel "
+          f"{float(rel):.3e}, total cost rel {total_rel:.3e}, cost err "
+          f"{worst:.3f} of bound")
     print(f"    max|err| / max|ref| per row block: {', '.join(blocks)}")
     return max_err
 
 
-def mega_bound_ms(args) -> float:
-    """Least time of one megakernel build on these inputs: the bytes it
-    must move (each valid observation's slabs and each image pixel its
-    taps touch read once, at the stack's 4 or 2 bytes, the (184, Og)
-    output written once) over the card's memory rate.  Its f32 operations
-    (MEGA_OPS_PER_OBS each) take far less, so it is bytes-bound."""
+def mega_bound_ms(model, images, cams, rho, consts) -> float:
+    """Least time of one megakernel build on these inputs, counted from the
+    fused entry's own inputs: the bytes it must move (each observation
+    column's static columns (index 16 B, bearings 96 B, intrinsics 32 B,
+    reference patch 32 B) read once, the state (poses, affine, inverse
+    depths) read once, each image pixel its taps touch read once at the
+    stack's 4 or 2 bytes, and the (184,) f32 payload of each observation
+    written once; zero columns are not charged) over the card's memory
+    rate.  Its f32 operations (MEGA_OPS_PER_OBS each) take far less, so it
+    is bytes-bound."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
-    images, ux, uy, GA, GB, refp, aff, iog, cnt, _ = args
     K, H, W = images.shape
-    Og = ux.shape[1]
-    G = pba_mega.GROUP
-    lane = torch.arange(Og, device=ux.device) % G
-    ok = lane < cnt.long().repeat_interleave(G)
+    ok = consts.timg >= 0
     n_obs = int(ok.sum())
-    slab_rows = ux.shape[0] + uy.shape[0] + GA.shape[0] + GB.shape[0] \
-        + refp.shape[0] + aff.shape[0]
-    img = iog.long().repeat_interleave(G)[ok]
-    x0 = torch.floor(ux[:, ok]).clamp(-1, W - 1).long()
-    y0 = torch.floor(uy[:, ok]).clamp(-1, H - 1).long()
-    taps = torch.cat([((img * H + (y0 + dy).clamp(0, H - 1)) * W
-                       + (x0 + dx).clamp(0, W - 1)).reshape(-1)
+    ux, uy, _, _, _ = pba_mega.warp_slabs(model, cams, rho, consts)
+    img = consts.timg[ok]
+    x0 = torch.floor(ux[:, ok].clamp(0, W - 1.001)).long()
+    y0 = torch.floor(uy[:, ok].clamp(0, H - 1.001)).long()
+    taps = torch.cat([((img * H + y0 + dy) * W + x0 + dx).reshape(-1)
                       for dy in (0, 1) for dx in (0, 1)])
     n_pix = int(torch.unique(taps).numel())
     texel = images.element_size()
-    nbytes = 4 * (slab_rows * n_obs + 2 * iog.numel()) + texel * n_pix \
-        + 4 * pba_mega.OUT_ROWS * Og
+    col_bytes = 4 * (4 + 3 * pba_mega.P + 8 + pba_mega.P)
+    state = 4 * (cams.pose.numel() + cams.affine.numel() + rho.numel())
+    out_bytes = 4 * pba_mega.OUT_ROWS * n_obs
+    nbytes = col_bytes * n_obs + state + texel * n_pix + out_bytes
     ops = MEGA_OPS_PER_OBS * n_obs
     check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
           "megakernel bound is not bytes")
     print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
-          f"{4 * slab_rows} B, {n_pix} image pixels x {texel} B, output "
-          f"{4 * pba_mega.OUT_ROWS * Og / 1e6:.2f} MB) at 3.35 TB/s")
+          f"{col_bytes} B of columns, state {state / 1e6:.3f} MB, {n_pix} "
+          f"image pixels x {texel} B, output {out_bytes / 1e6:.2f} MB) at "
+          f"3.35 TB/s")
     return 1e3 * nbytes / H100_BYTES_PER_S
 
 
+def pushed_state(problem, device):
+    """The problem's state with observations made off-image and
+    non-finite through the state, as the megakernel now takes no pixel
+    planes: every 7th camera moved 0.8 m sideways (its targets leave the
+    image), every 97th landmark at a negative inverse depth (behind the
+    camera), landmark 5 at an infinite one (projections not finite).
+    Returns (cams, rho)."""
+    pose = problem.cam_states.pose.clone()
+    pose[::7, 0] += 0.8
+    rho = problem.inv_depth.clone()
+    rho[::97] = -rho[::97].abs()
+    rho[5] = float("inf")
+    return problem.cam_states._replace(pose=pose), rho
+
+
+def bits_equal(build, label: str):
+    """Two builds of the same input must be bit-equal."""
+    c1, neq1 = build()
+    c2, neq2 = build()
+    same = torch.equal(c1, c2) and all(torch.equal(a, b)
+                                       for a, b in zip(neq1, neq2))
+    check(same, f"{label}: two builds of the same input differ")
+    print(f"  {label}: two first builds bit-equal (cost {float(c1):.9e}, "
+          f"{len(neq1)} normal-equation pieces)")
+
+
 def kernel_phase(pipe, device):
-    """Phase 1: the kernel against the plain version at EuRoC scale and on
-    an 8448-pixel-wide image.  Returns (max_abs_err, ms, plain_ms,
+    """Phase 1: the fused kernel against its plain version at EuRoC scale
+    (both thread mappings, both column orders, timed) and on an
+    8448-pixel-wide image.  Returns (max_abs_err, ms, plain_ms,
     bound_ms)."""
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
     from photometric_bundle_adjustment_tpu_torch.profile_solve import (
-        SEED,
+        graph_ms,
         time_ms,
     )
 
@@ -282,74 +404,100 @@ def kernel_phase(pipe, device):
         pipe, device=device)
     K = problem.cam_states.pose.shape[0]
     model = pipe.calib.cam_types[0]
-    solve = pba_mega.make_mega_solver(model, images_flat, H, W, problem, K,
-                                      device=device)
-    consts = solve.consts
-    ux, uy, _, GA, GB = pba_mega.warp_slabs(
-        model, problem.cam_states, problem.inv_depth, consts)
-    aff = pba_mega.affine_slab(problem.cam_states.affine, consts)
-    # push some observations off the image and make one non-finite
-    Og = ux.shape[1]
-    cols = torch.arange(0, Og, 97, device=device)
-    ux[:, cols[0::3]] -= 0.8 * W
-    uy[:, cols[1::3]] += 0.7 * H
-    ux[:, cols[2::3]] += 1.3 * W
-    ux[:, 5] = -1e6
-    uy[:, 5] = -1e6
-    args = (solve.images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
-            consts.cnt, HUBER)
-    n_valid = int(consts.cnt.sum())
-    print(f"phase 1: kernel vs plain at {K} images of {H}x{W}, "
-          f"{n_valid} observations in {Og} rows")
-    out = pba_mega.mega_rj(*args)
-    ref = pba_mega.mega_rj_reference(*args)
-    torch.cuda.synchronize()
-    max_err = compare_payloads(out, ref, solve.images, "EuRoC scale")
+    images = images_flat.reshape(-1, H, W).contiguous()
+    cams, rho = pushed_state(problem, device)
+    consts = {}
+    for by_image in (True, False):
+        _, rows = pba_mega.build_chunk_mega_plan(problem, by_image=by_image)
+        consts[by_image] = pba_mega.make_mega_consts(model, problem, rows)
+    c = consts[True]
+    N = c.cols.shape[1]
+    n_obs = int((c.timg >= 0).sum())
+    print(f"phase 1: fused kernel vs plain at {K} images of {H}x{W}, model "
+          f"{model}, {n_obs} observations in {N} columns (one zero column)")
+    max_err = 0.0
+    for by_image, cc in consts.items():
+        ref = pba_mega.mega_fused_reference(model, images, cams, rho, cc,
+                                            HUBER)
+        ux, uy, _, GA, GB = pba_mega.warp_slabs(model, cams, rho, cc)
+        for per_point in (True, False):
+            out = pba_mega.mega_fused(model, images, cams, rho, cc, HUBER,
+                                      per_point=per_point)
+            torch.cuda.synchronize()
+            label = (f"{'per point' if per_point else 'per observation'}, "
+                     f"{'sorted by image' if by_image else 'problem order'}")
+            err = compare_payloads(out, ref, images, label,
+                                   (ux, uy, GA, GB, cc))
+            check(bool((out[:, cc.timg < 0] == 0).all()),
+                  f"{label}: the zero column is not zero")
+            max_err = max(max_err, err)
+        del out, ref
 
-    ms, plain_ms = timed_pair(lambda: pba_mega.mega_rj(*args),
-                              lambda: pba_mega.mega_rj_reference(*args))
-    wrapper_ms = time_ms(lambda: pba_mega.mega_rj(*args), device)
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per build on the "
-          f"device (CUDA graphs of 20 calls, plain/kernel/kernel/plain); "
-          f"through the wrapper {wrapper_ms:.4f} ms per call (20 calls "
-          f"between CUDA events: the host's launch rate)")
-    bound_ms = mega_bound_ms(args)
+    def kern(cc, per_point):
+        return lambda: pba_mega.mega_fused(model, images, cams, rho, cc,
+                                           HUBER, per_point=per_point)
+
+    ms, plain_ms = timed_pair(kern(c, True), lambda: pba_mega.mega_fused_reference(
+        model, images, cams, rho, c, HUBER))
+    variants = {(True, True): ms}
+    for by_image in (True, False):
+        for per_point in (True, False):
+            if (by_image, per_point) not in variants:
+                variants[by_image, per_point] = graph_ms(
+                    kern(consts[by_image], per_point))
+    wrapper_ms = time_ms(kern(c, True), device)
+    print(f"  kernel {ms:.4f} ms (per point, sorted by image), plain (warp_slabs "
+          f"+ mega_rj_reference) {plain_ms:.4f} ms per build on the device "
+          f"(CUDA graphs of 20 calls, plain/kernel/kernel/plain); through "
+          f"the wrapper {wrapper_ms:.4f} ms per call (20 calls between CUDA "
+          f"events: the host's launch rate)")
+    for (by_image, per_point), t in variants.items():
+        print(f"  layout: {'per point' if per_point else 'per observation'}"
+              f", {'sorted by image' if by_image else 'problem order'}: "
+              f"{t:.4f} ms")
+    bound_ms = mega_bound_ms(model, images, cams, rho, c)
     print(f"  bound {bound_ms:.4f} ms: the kernel at "
           f"{bound_ms / ms:.1%} of it")
 
     # an image wider than the TPU kernel's 14-bit column field
-    Hw, Ww, Ogw = 24, 8448, 2 * pba_mega.GROUP
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    imgs = (255 * torch.rand((2, Hw, Ww), generator=gen)).to(device)
-    uxw = (8000 + 460 * torch.rand((8, Ogw), generator=gen)).to(device)
-    uyw = (2 + 20 * torch.rand((8, Ogw), generator=gen)).to(device)
-    GAw = torch.randn((104, Ogw), generator=gen).to(device)
-    GBw = torch.randn((104, Ogw), generator=gen).to(device)
-    refw = (255 * torch.rand((8, Ogw), generator=gen)).to(device)
-    affw = (0.1 * torch.randn((4, Ogw), generator=gen)).to(device)
-    iogw = torch.tensor([0, 1], dtype=torch.int32, device=device)
-    cntw = torch.tensor([256, 200], dtype=torch.int32, device=device)
-    argw = (imgs, uxw, uyw, GAw, GBw, refw, affw, iogw, cntw, HUBER)
-    outw = pba_mega.mega_rj(*argw)
-    refw_ = pba_mega.mega_rj_reference(*argw)
-    torch.cuda.synchronize()
-    compare_payloads(outw, refw_, imgs, f"W={Ww}")
-    pad = (torch.arange(Ogw, device=device) % pba_mega.GROUP) >= \
-        cntw.long().repeat_interleave(pba_mega.GROUP)
-    check(bool((outw[:, pad] == 0).all()), "padding rows are not zero")
+    imgs, cw, rw, constw, _ = synthetic.wide_image_state(device=device)
+    refw = pba_mega.mega_fused_reference("pinhole", imgs, cw, rw, constw,
+                                         HUBER)
+    warpw = pba_mega.warp_slabs("pinhole", cw, rw, constw)
+    for per_point in (True, False):
+        outw = pba_mega.mega_fused("pinhole", imgs, cw, rw, constw, HUBER,
+                                   per_point=per_point)
+        torch.cuda.synchronize()
+        compare_payloads(outw, refw, imgs, f"W={imgs.shape[2]}, "
+                         f"{'per point' if per_point else 'per observation'}",
+                         warpw[:2] + warpw[3:] + (constw,))
+        check(bool((outw[:, constw.timg < 0] == 0).all()),
+              "zero columns are not zero")
     return max_err, ms, plain_ms, bound_ms
 
 
 def slice_phase(pipe, device, se3):
-    """Phase 2: the photometric path.  Returns the kernel launch count."""
+    """Phase 2: the photometric path, after two first builds of its
+    level-0 solver are held bit-equal.  Returns the kernel launch count."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
 
     err0 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
     n_obs = sum(len(lm.obs) - 1 for lm in pipe.landmarks.values())
     print(f"phase 2: refine_photometric, {len(pipe.cameras)} images, "
           f"{len(pipe.landmarks)} landmarks, {n_obs} observations, "
           f"{LEVELS} levels x {MAX_ITERATIONS} iterations")
+    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
+        pipe, device=device)
+    solve = pba_mega.make_mega_solver(pipe.calib.cam_types[0], images_flat, H,
+                                      W, problem, device=device)
+    cfg = ba.BAConfig(huber_delta=HUBER)
+    bits_equal(lambda: solve.build(problem, cfg),
+               f"chunk family at level 0 ({solve.consts.cols.shape[1]} "
+               f"columns)")
+    del solve, problem, images_flat
     reset_counts()
     t0 = time.perf_counter()
     res = pba_refine.refine_photometric(
@@ -385,50 +533,45 @@ def slice_phase(pipe, device, se3):
     return launches
 
 
-def sample_bound_ms(images, ux, uy, iog, cnt) -> float:
+def sample_bound_ms(images, ux, uy, img) -> float:
     """Least time of one sampler call on these inputs: the bytes it must
-    move (ux and uy of each valid observation, each image pixel its taps
-    touch and the group tables read once, 3 x 8 f32 per row written once)
-    over the card's memory rate.  Its f32 operations (about 20 per point)
-    take far less, so it is bytes-bound."""
+    move (ux, uy and the image index of each observation column, each
+    image pixel its taps touch read once, 3 x 8 f32 per observation
+    written once; zero columns are not charged) over the card's memory
+    rate.  Its f32 operations (about 20 per point) take far less, so it is
+    bytes-bound."""
     from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
 
     K, H, W = images.shape
-    Opad = ux.shape[1]
-    G = ps.GROUP
-    lane = torch.arange(Opad, device=ux.device) % G
-    ok = lane < cnt.long().repeat_interleave(G)
+    ok = img >= 0
     n_obs = int(ok.sum())
-    img = iog.long().repeat_interleave(G)[ok]
-    xs, ys = ux[:, ok], uy[:, ok]
-    x0 = torch.floor(xs.clamp(0, W - 1.001)).long()
-    y0 = torch.floor(ys.clamp(0, H - 1.001)).long()
-    taps = torch.cat([((img * H + y0 + dy) * W + x0 + dx).reshape(-1)
+    im = img[ok].long()
+    x0 = torch.floor(ux[:, ok].clamp(0, W - 1.001)).long()
+    y0 = torch.floor(uy[:, ok].clamp(0, H - 1.001)).long()
+    taps = torch.cat([((im * H + y0 + dy) * W + x0 + dx).reshape(-1)
                       for dy in (0, 1) for dx in (0, 1)])
     n_pix = int(torch.unique(taps).numel())
-    nbytes = 4 * (2 * ps.P * n_obs + n_pix + 2 * iog.numel()) \
-        + 4 * 3 * ps.P * Opad
+    out_bytes = 4 * 3 * ps.P * n_obs
+    nbytes = 4 * (2 * ps.P * n_obs + n_obs + n_pix) + out_bytes
     ops = 20 * ps.P * n_obs
     check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
           "sampler bound is not bytes")
     print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
-          f"{8 * ps.P} B, {n_pix} image pixels, output "
-          f"{12 * ps.P * Opad / 1e6:.2f} MB) at 3.35 TB/s")
+          f"{8 * ps.P + 4} B, {n_pix} image pixels, output "
+          f"{out_bytes / 1e6:.2f} MB) at 3.35 TB/s")
     return 1e3 * nbytes / H100_BYTES_PER_S
 
 
-def grid_sample_values(images, ux, uy, iog):
+def grid_sample_values(images, ux, uy, img):
     """The value (not the gradient) of the sampler through one
     ``torch.nn.functional.grid_sample`` call: the stack as one tall image,
-    coordinates clamped to their image and stacked, ``align_corners=True``
-    and border padding.  Returns (call, values); ``call`` times the one
-    library call alone.  A yardstick; the port never calls it."""
-    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
-
+    coordinates clamped to their column's image and stacked,
+    ``align_corners=True`` and border padding.  Returns (call, values);
+    ``call`` times the one library call alone.  A yardstick; the port
+    never calls it."""
     K, H, W = images.shape
-    img = iog.long().repeat_interleave(ps.GROUP)[None, :]
     x = ux.clamp(0, W - 1.001)
-    y = img * H + uy.clamp(0, H - 1.001)
+    y = img.clamp_min(0).long()[None, :] * H + uy.clamp(0, H - 1.001)
     grid = torch.stack([2 * x / (W - 1) - 1, 2 * y / (K * H - 1) - 1],
                        dim=-1)[None]
     tall = images.reshape(1, 1, K * H, W)
@@ -509,48 +652,49 @@ def sampler_phase(pipe, device, se3):
         pba_refine.build_photometric_problem(pipe, device=device)
     K = problem.cam_states.pose.shape[0]
     model = pipe.calib.cam_types[0]
-    p_img, iog, cnt = pba.imagesort_problem(problem, K)
-    solve_k = pba.make_kernel_fused_solver(model, images_flat, H, W, iog,
-                                           cnt, device=device)
+    solve_k = pba.make_kernel_fused_solver(model, images_flat, H, W, problem,
+                                           device=device)
     images, rj_fn = solve_k.images, solve_k.fns[1]
 
     # (a) the kernel against its plain version on the warped coordinates
-    o = p_img.obs
-    Og = len(iog) * ps.GROUP
-    ux, uy, _ = rj_fn.warp(ba.take_rows(p_img.cam_states, o.anchor_cam),
-                           ba.take_rows(p_img.cam_states, o.target_cam),
-                           p_img.inv_depth[o.landmark], o.aux)
+    # of the problem's own rows
+    o = problem.obs
+    O = o.valid.shape[0]
+    ux, uy, _ = rj_fn.warp(ba.take_rows(problem.cam_states, o.anchor_cam),
+                           ba.take_rows(problem.cam_states, o.target_cam),
+                           problem.inv_depth[o.landmark], o.aux)
     fin = torch.isfinite(ux) & torch.isfinite(uy)
     ux = torch.where(fin, ux, torch.full_like(ux, -1e6)).contiguous()
     uy = torch.where(fin, uy, torch.full_like(uy, -1e6)).contiguous()
-    cols = torch.arange(0, Og, 97, device=device)
+    cols = torch.arange(0, O, 97, device=device)
     ux[:, cols[0::3]] -= 0.8 * W
     uy[:, cols[1::3]] += 0.7 * H
     ux[:, cols[2::3]] += 1.3 * W
     ux[:, 5] = -1e6
     uy[:, 5] = -1e6
-    iog_t, cnt_t = (torch.as_tensor(x, device=device) for x in (iog, cnt))
-    args = (images, ux, uy, iog_t, cnt_t, (H, W), True)
+    img = pba._column_images(problem, device)[:O].clone()
+    img[::1001] = -1                         # a few zero columns
+    args = (images, ux, uy, img, (H, W), True)
+    zero = img < 0
     print(f"phase 4: patch sampler vs plain at {K} images of {H}x{W}, "
-          f"{int(cnt.sum())} observations in {Og} rows ({len(iog)} groups)")
-    out = ps.sample_patches_grouped(*args)
+          f"{O} observation columns in the problem's order "
+          f"({int(zero.sum())} of them zero columns)")
+    out = ps.sample_patches(*args)
     ref = ps.sample_patches_reference(*args)
     torch.cuda.synchronize()
     scale = float(images.abs().max())
     max_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     check(max_err <= SAMPLE_ATOL * scale,
           f"sampler max err {max_err} > {SAMPLE_ATOL} * {scale}")
-    pad = (torch.arange(Og, device=device) % ps.GROUP) >= \
-        cnt_t.long().repeat_interleave(ps.GROUP)
-    check(all(bool((a[:, pad] == 0).all()) for a in out),
-          "sampler padding slots are not zero")
+    check(all(bool((a[:, zero] == 0).all()) for a in out),
+          "sampler zero columns are not zero")
     print(f"  max|err| {max_err:.3e} (bound {SAMPLE_ATOL * scale:.3e}); "
-          f"{int(pad.sum())} padding slots exactly zero")
-    ms, plain_ms = timed_pair(lambda: ps.sample_patches_grouped(*args),
+          f"{int(zero.sum())} zero columns exactly zero")
+    ms, plain_ms = timed_pair(lambda: ps.sample_patches(*args),
                               lambda: ps.sample_patches_reference(*args))
-    wrapper_ms = time_ms(lambda: ps.sample_patches_grouped(*args), device)
-    call, lib_val = grid_sample_values(images, ux, uy, iog_t)
-    lib_err = float((lib_val - out[0])[:, ~pad].abs().max())
+    wrapper_ms = time_ms(lambda: ps.sample_patches(*args), device)
+    call, lib_val = grid_sample_values(images, ux, uy, img)
+    lib_err = float((lib_val - out[0])[:, ~zero].abs().max())
     check(lib_err <= 1e-2 * scale, f"grid_sample differs by {lib_err}")
     library_ms = graph_ms(call)
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call on the "
@@ -559,19 +703,27 @@ def sampler_phase(pipe, device, se3):
           f"value alone, no gradient (within {lib_err:.2e} of the kernel's "
           f"value); through the wrapper {wrapper_ms:.4f} ms per call (20 "
           f"calls between CUDA events: the host's launch rate)")
-    bound_ms = sample_bound_ms(images, ux, uy, iog_t, cnt_t)
+    by_image = torch.argsort(img, stable=True)
+    sorted_args = (images, ux[:, by_image].contiguous(),
+                   uy[:, by_image].contiguous(), img[by_image].contiguous(),
+                   (H, W), True)
+    print(f"  the same columns sorted by image: "
+          f"{graph_ms(lambda: ps.sample_patches(*sorted_args)):.4f} ms")
+    bound_ms = sample_bound_ms(images, ux, uy, img)
     print(f"  bound {bound_ms:.4f} ms: the kernel at {bound_ms / ms:.1%} "
           f"of it")
+    del out, ref, args, sorted_args
 
-    # (b) make_kernel_fused_solver on the map, classic loop
+    # (b) make_kernel_fused_solver on the map in its own order, classic loop
     cfg = ba.BAConfig(max_iterations=MAX_ITERATIONS, huber_delta=HUBER)
-    plan = fused.plan_for_problem(p_img, pow2_buckets=False)
+    plan = fused.plan_for_problem(problem, pow2_buckets=False)
     solve_g = pba.make_fused_solver(model, images_flat, H, W, device=device)
-    check_first_build(solve_k, solve_g, p_img, plan, cfg, "kernel_fused")
+    check_first_build(solve_k, solve_g, problem, plan, cfg, "kernel_fused")
+    bits_equal(lambda: solve_k.build(problem, plan, cfg), "kernel_fused")
     err0 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
-    p, _, launches_b, _ = run_solver(solve_k, p_img, plan, cfg,
+    p, _, launches_b, _ = run_solver(solve_k, problem, plan, cfg,
                                      f"kernel_fused ({K} images of {H}x{W}, "
-                                     f"{Og} rows, classic loop)")
+                                     f"{O} rows, classic loop)")
     poses = p.cam_states.pose.double().cpu().numpy()
     err1 = pose_errors(dict(zip(cam_list, poses)), pipe.poses_gt, se3)
     print(f"  kernel_fused pose error vs ground truth: translation "
@@ -587,7 +739,7 @@ def sampler_phase(pipe, device, se3):
     prob_d, plan_d = fused.densify_problem(prob_u, pow2_buckets=False)
     Ku = prob_u.cam_states.pose.shape[0]
     solve_d = pba.make_kernel_dense_solver("pinhole", imgs_u, Hu, Wu, prob_d,
-                                           Ku, device=device)
+                                           device=device)
     S = plan_d.lm_cam.shape[0]
     print(f"  euroc_scale_pba: {Ku} images of {Hu}x{Wu}, "
           f"{int((prob_u.obs.valid != 0).sum())} observations in {S} x "
@@ -597,6 +749,7 @@ def sampler_phase(pipe, device, se3):
     solve_gd = pba.make_fused_solver("pinhole", imgs_u, Hu, Wu, device=device)
     check_first_build(solve_d, solve_gd, prob_d, plan_d, cfg_d,
                       "kernel_dense")
+    bits_equal(lambda: solve_d.build(prob_d, plan_d, cfg_d), "kernel_dense")
     _, _, launches_c, _ = run_solver(solve_d, prob_d, plan_d, cfg_d,
                                      "kernel_dense (fused-cost loop)")
     return dict(launches=launches_b + launches_c, max_abs_err=max_err, ms=ms,
@@ -622,16 +775,16 @@ def dense_phase(pipe, device, se3):
     K = prob_u.cam_states.pose.shape[0]
     torch.cuda.synchronize()
     base_mib = torch.cuda.memory_allocated(device) / 2**20
-    solve_d = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_d, K,
+    solve_d = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_d,
                                         plan_d, device=device)
-    solve_c = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_u, K,
+    solve_c = pba_mega.make_mega_solver("pinhole", imgs_u, H, W, prob_u,
                                         device=device)
     S = plan_d.lm_cam.shape[0]
     n_obs = int((prob_u.obs.valid != 0).sum())
     print(f"phase 5: dense family on euroc_scale_pba, {K} images of {H}x{W}, "
           f"{n_obs} observations in {S} x {prob_u.inv_depth.shape[0]} slot "
-          f"rows, {solve_d.consts.iog.numel()} groups (set up in "
-          f"{time.perf_counter() - t0:.1f} s)")
+          f"rows, the kernel on {solve_d.consts.cols.shape[1]} columns (set "
+          f"up in {time.perf_counter() - t0:.1f} s)")
 
     # (a) the dense family's first build and damped solve = the chunk's
     cfg = ba.BAConfig(max_iterations=MAX_ITERATIONS, huber_delta=HUBER,
@@ -653,29 +806,34 @@ def dense_phase(pipe, device, se3):
           f"damped solve at lambda 1e-4: max|err| / max|ref| "
           f"{', '.join(errs)}")
     del neq_d, neq_c, solve_c
+    for tier, c in (("f32", cfg), ("bf16", cfg._replace(sample_bf16=True))):
+        bits_equal(lambda: solve_d.build(prob_d, c), f"dense family, {tier}")
 
     # (b) the bf16 kernel against its plain version on the widened stack
     cfg16 = cfg._replace(sample_bf16=True)
     consts = solve_d.consts
-    ux, uy, _, GA, GB = pba_mega.warp_slabs(
-        "pinhole", prob_d.cam_states, prob_d.inv_depth, consts)
-    aff = pba_mega.affine_slab(prob_d.cam_states.affine, consts)
-    rest = (ux, uy, GA, GB, consts.refp, aff, consts.iog, consts.cnt, HUBER)
+    rest = (prob_d.cam_states, prob_d.inv_depth, consts, HUBER)
     bf = solve_d.stack(cfg16)
     stack_mib = bf.numel() * bf.element_size() / 2**20
-    args16 = (bf,) + rest
-    out = pba_mega.mega_rj(*args16)
-    ref = pba_mega.mega_rj_reference(*args16)
+    out = pba_mega.mega_fused("pinhole", bf, *rest)
+    ref = pba_mega.mega_fused_reference("pinhole", bf.float(), *rest)
     torch.cuda.synchronize()
-    max_err = compare_payloads(out, ref, bf.float(), "(b) bf16 kernel")
+    ux, uy, _, GA, GB = pba_mega.warp_slabs(
+        "pinhole", prob_d.cam_states, prob_d.inv_depth, consts)
+    max_err = compare_payloads(out, ref, bf.float(), "(b) bf16 kernel",
+                               (ux, uy, GA, GB, consts))
+    del ux, uy, GA, GB
     del out, ref
-    ms, plain_ms = timed_pair(lambda: pba_mega.mega_rj(*args16),
-                              lambda: pba_mega.mega_rj_reference(*args16))
-    ms32 = graph_ms(lambda: pba_mega.mega_rj(solve_d.images, *rest))
+    ms, plain_ms = timed_pair(
+        lambda: pba_mega.mega_fused("pinhole", bf, *rest),
+        lambda: pba_mega.mega_fused_reference("pinhole", bf, *rest))
+    ms32 = graph_ms(lambda: pba_mega.mega_fused("pinhole", solve_d.images,
+                                                *rest))
     print(f"  bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the f32 "
           f"kernel on the same inputs {ms32:.4f} ms per build on the device "
           f"(CUDA graphs of 20 calls)")
-    bound_ms = mega_bound_ms(args16)
+    bound_ms = mega_bound_ms("pinhole", bf, prob_d.cam_states,
+                             prob_d.inv_depth, consts)
     print(f"  bound {bound_ms:.4f} ms: the bf16 kernel at "
           f"{bound_ms / ms:.1%} of it")
 
@@ -708,7 +866,7 @@ def dense_phase(pipe, device, se3):
         check((n32, n16) == want, f"dense {tier}: launches (f32, bf16) "
               f"{(n32, n16)} != builds {want}")
         launches += n16
-    del solve_d, args16, rest, bf
+    del solve_d, rest, bf
 
     # (d) refine_photometric in the bf16 tier on the initial map
     err0 = pose_errors(pipe.cameras, pipe.poses_gt, se3)
@@ -820,21 +978,19 @@ def probe_phase(device):
     return grid, fields
 
 
-def hamming_resources():
-    """Phase 0's account of the Hamming kernel, read from the built library
-    with ``cuobjdump``: each instance's registers, stack and local memory
-    (``-res-usage``; spills would show as local memory) and its
-    tensor-core instructions (``-sass``: IMMA, BMMA or HGMMA), then its
-    dynamic shared memory at the front end's F = 512.  Fails unless every
-    instance issues tensor-core instructions and none spills."""
+def cuobjdump_usage(name: str):
+    """Each kernel function of the built library ``name``: its registers,
+    stack and local memory (``cuobjdump -res-usage``; spills would show as
+    stack or local memory) and its tensor-core instructions (``-sass``:
+    IMMA, BMMA or HGMMA).  Returns {function: (usage dict, mma list)}."""
     import re
 
-    from photometric_bundle_adjustment_tpu_torch.ops import _build, hamming
+    from photometric_bundle_adjustment_tpu_torch.ops import _build
 
     cuobjdump = _build._nvcc().rsplit("/", 1)[0] + "/cuobjdump"
 
     def dump(flag):
-        return subprocess.run([cuobjdump, flag, _build.load("hamming")._name],
+        return subprocess.run([cuobjdump, flag, _build.load(name)._name],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
 
@@ -851,14 +1007,26 @@ def hamming_resources():
 
     res = per_function(dump("-res-usage"), r"(REG|STACK|LOCAL):(\d+)")
     mma = per_function(dump("-sass"), r"\b(IMMA|BMMA|HGMMA)\b")
-    for fn in sorted(mma):
+    return {fn: (dict((k, int(v)) for k, v in res.get(fn, [])),
+                 mma.get(fn, [])) for fn in set(res) | set(mma)}
+
+
+def hamming_resources():
+    """Phase 0's account of the Hamming kernel: each instance's registers,
+    spills and tensor-core instructions, then its dynamic shared memory at
+    the front end's F = 512.  Fails unless every instance issues
+    tensor-core instructions and none spills."""
+    import re
+
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming
+
+    for fn, (usage, mma) in sorted(cuobjdump_usage("hamming").items()):
         # hamming_kernel<kBoth>
         tag = re.search(r"hamming_kernelILb(\d)E", fn)
         if not tag:
             continue
         both = tag.group(1) == "1"
-        usage = dict((k, int(v)) for k, v in res.get(fn, []))
-        ops = {op: mma[fn].count(op) for op in sorted(set(mma[fn]))}
+        ops = {op: mma.count(op) for op in sorted(set(mma))}
         print(f"  hamming, {'both directions' if both else 'forward'}: "
               f"{usage.get('REG', 'not read')} registers, stack "
               f"{usage.get('STACK', 'not read')} B, local "
@@ -871,6 +1039,31 @@ def hamming_resources():
     print(f"  hamming: {hamming.smem_bytes(512, 512, True)} B of shared "
           f"memory a block at F = 512, both directions "
           f"({hamming.smem_bytes(512, 512, False)} B forward)")
+
+
+def mega_resources():
+    """Phase 0's account of the megakernel: the registers, stack and local
+    memory (spills) of each template instance (thread mapping, camera
+    model, texel type), as ``cuobjdump`` reads them.  Reported, not
+    checked: a spill costs time, not correctness."""
+    import re
+
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+
+    n = 0
+    for fn, (usage, _) in sorted(cuobjdump_usage("pba_mega").items()):
+        tag = re.search(r"mega_(point|obs)_kernelILi(\d)E(\w+?)EEv", fn)
+        if not tag:
+            continue
+        n += 1
+        texel = "bf16" if "bfloat16" in tag.group(3) else "f32"
+        print(f"  pba_mega, per {tag.group(1)}, "
+              f"{pba_mega.MODELS[int(tag.group(2))]}, {texel}: "
+              f"{usage.get('REG', 'not read')} registers, stack "
+              f"{usage.get('STACK', 'not read')} B, local "
+              f"{usage.get('LOCAL', 'not read')} B")
+    check(n == 2 * 2 * len(pba_mega.MODELS),
+          f"{n} megakernel instances read, expected 16")
 
 
 def mma_rates(device) -> dict:
@@ -1145,6 +1338,7 @@ def main() -> int:
                                        "spill")):
                 print(f"  {name}: {line.strip()}")
     hamming_resources()
+    mega_resources()
     rates = mma_rates(device)
 
     t0 = time.perf_counter()
@@ -1160,7 +1354,7 @@ def main() -> int:
     grid, window = probe_phase(device)
 
     print(json.dumps({"kernels": [{
-        "name": "pba_mega_rj",
+        "name": "pba_mega_fused",
         "route": "cuda",
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/pba_mega.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/pba_mega.py:456",
@@ -1172,7 +1366,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }, {
-        "name": "pba_mega_rj_bf16",
+        "name": "pba_mega_fused_bf16",
         "route": "cuda",
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/pba_mega.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/pba_mega.py:456",

@@ -10,13 +10,16 @@ The package mirrors the module paths of ``photometric_bundle_adjustment_tpu``
 - ``features``  Shi-Tomasi detection, rotated BRIEF descriptors, Hamming
                 matching with the ratio test and mutual check, all-pairs
                 matching over a pair worklist, the epipolar test.
-- ``optim``     the BA types, the host-side chunk plans and the chunked
-                segment sum.
+- ``optim``     the BA types, the host-side chunk plans, the chunked
+                segment sum and the fixed-order sums (``tree_sum``) that
+                make a build repeat bit for bit.
 - ``models``    the photometric problem, samplers, image pyramid and the
                 synthetic problem, map and stereo-sequence generators.
-- ``ops``       the photometric megakernel (``pba_mega``) and the Hamming
-                best-two matcher (``hamming``), each with its plain
-                PyTorch version, and the kernel builder.
+- ``ops``       the photometric megakernel (``pba_mega``: warp, sampling
+                and Schur payloads of every observation column), the
+                patch sampler (``patch_sample``) and the Hamming best-two
+                matcher (``hamming``), each with its plain PyTorch
+                version, and the kernel builder.
 - ``pipeline``  ``refine_photometric`` (coarse-to-fine photometric BA of a
                 map), ``SfmPipeline``'s front-end stages and ``SfmConfig``.
 

@@ -12,14 +12,14 @@ with an 8-dim camera tangent [se3(6), a, b] and scalar inverse-depth
 landmarks.  Images are sampled bilinearly from a flat ``(K*H*W,)`` buffer.
 
 The residual and its closed-form Jacobian are batched over the observation
-axis (``make_rj_fn``, ``make_residual_fn``), with one of three samplers:
+axis (``make_rj_fn``, ``make_residual_fn``), with one of two samplers:
 per-tap gathers (``make_fused_solver``), or the patch-sampling kernel of
-``ops/patch_sample.py`` on observations grouped by target image
-(``make_kernel_fused_solver``) or on the slot-major layout of
-``optim.fused.densify_problem`` (``make_kernel_dense_solver``).  All three
-solve with ``optim.fused.make_fused_ba_solver``.  The JAX package's
+``ops/patch_sample.py`` on the problem's own rows
+(``make_kernel_fused_solver``, chunk plans) or on the slot-major layout of
+``optim.fused.densify_problem`` (``make_kernel_dense_solver``).  All of
+them solve with ``optim.fused.make_fused_ba_solver``.  The JAX package's
 ``"tile"`` sampler option of ``make_rj_fn``/``make_residual_fn`` is not
-ported yet (ROADMAP queue 1): they take no ``sampler`` argument.
+ported (ROADMAP, "Not to port"): they take no ``sampler`` argument.
 """
 
 from __future__ import annotations
@@ -355,135 +355,63 @@ def make_fused_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
 # ---------------------------------------------------------------------------
 
 
-def imagesort_problem(problem: ba.BAProblem, n_images: int):
-    """Host-side: reorder observations into ``ops.patch_sample.group_layout``
-    order (sorted by target image, each image's range padded to the
-    kernel's group size, padding slots valid=0).  Returns ``(problem2,
-    img_of_group, group_counts)`` (the last two int32 numpy arrays) for
-    ``make_kernel_fused_solver``."""
+def _column_images(problem: ba.BAProblem, device) -> torch.Tensor:
+    """The sampler's image of every row of ``problem`` (-1 where the row is
+    not valid) and of the up to 8 zero rows the fused build appends, as
+    int32 on ``device``."""
     o = problem.obs
-    dev = problem.inv_depth.device
-    order, iog, gcnt = ps.group_layout(o.aux.target_img.cpu().numpy(),
-                                       n_images)
-    take = torch.as_tensor(np.where(order >= 0, order, 0), device=dev)
-    filled = torch.as_tensor(order >= 0, device=dev)
-
-    def reorder(x, fill=None):
-        x = x[take]
-        if fill is None:
-            return x
-        sel = filled.reshape((-1,) + (1,) * (x.dim() - 1))
-        return torch.where(sel, x, torch.full_like(x, fill))
-
-    aux = o.aux
-    # padding slots carry their group's image, so the kernel samples a
-    # well-defined location (valid=0 zeroes their rows downstream)
-    timg = torch.where(filled, aux.target_img[take], torch.as_tensor(
-        np.repeat(iog, ps.GROUP), dtype=torch.int64, device=dev))
-    aux2 = PhotometricObs(
-        uv_ref=reorder(aux.uv_ref, 0.0),
-        ref_patch=reorder(aux.ref_patch, 0.0),
-        target_img=timg,
-        intr_ref=reorder(aux.intr_ref),
-        intr_target=reorder(aux.intr_target),
-    )
-    obs2 = ba.BAObservations(
-        anchor_cam=reorder(o.anchor_cam, 0),
-        target_cam=reorder(o.target_cam, 0),
-        landmark=reorder(o.landmark, 0),
-        aux=aux2,
-        valid=reorder(o.valid, 0),
-    )
-    return problem._replace(obs=obs2), iog, gcnt
-
-
-def _group_tensors(images_flat, H, W, img_of_group, group_counts, device):
-    """The (Kimg, H, W) f32 image stack and the int32 group tables on
-    ``device``, as the kernel takes them."""
-    images3d = images_flat.to(device=device, dtype=torch.float32)
-    images3d = images3d.reshape(-1, H, W).contiguous()
-
-    def i32(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
-
-    return images3d, i32(img_of_group), i32(group_counts)
-
-
-def _pad_cols(a: torch.Tensor, n: int) -> torch.Tensor:
-    """(P, m) -> (P, n) with zero columns appended."""
-    return torch.nn.functional.pad(a, (0, n - a.shape[1]))
+    img = torch.where(o.valid != 0, o.aux.target_img,
+                      torch.full_like(o.aux.target_img, -1))
+    img = torch.cat([img, img.new_full((8,), -1)])
+    return img.to(device=device, dtype=torch.int32)
 
 
 def make_batched_fns(model: str, images_flat: torch.Tensor, H: int, W: int,
-                     img_of_group, group_counts):
-    """Kernel-sampled batched ``(residual_fn, rj_fn)`` for a problem in
-    ``imagesort_problem`` order; the tensors stay on the images' device.
-
-    Sampling runs through ``ops.patch_sample.sample_patches_grouped`` on
-    the first Og = len(img_of_group) * 128 rows; the rows the fused build
-    appends after them are padding and sample as zeros.  (The JAX
-    package's ``batched_fns_padded`` takes its lane-padded image stack; the
-    port has no padded stack, so this function is both.)"""
-    images3d, iog, gcnt = _group_tensors(images_flat, H, W, img_of_group,
-                                         group_counts, images_flat.device)
-    Og = iog.shape[0] * ps.GROUP
+                     img: torch.Tensor):
+    """Kernel-sampled batched ``(residual_fn, rj_fn)``: sampling runs
+    through ``ops.patch_sample.sample_patches`` with the column images
+    ``img`` (``_column_images`` of the problem solved; the first n of them
+    for n rows), on the images' device.  (The JAX package's
+    ``batched_fns_padded`` takes its lane-padded image stack; the port has
+    no padded stack, so this function is both.)"""
+    images3d = images_flat.to(torch.float32).reshape(-1, H, W).contiguous()
 
     def sample(ux, uy, aux, want_grads):
-        val, gx, gy = ps.sample_patches_grouped(
-            images3d, ux[:, :Og].contiguous(), uy[:, :Og].contiguous(), iog,
-            gcnt, (H, W), want_grads)
-        n = ux.shape[1]
-        return tuple(_pad_cols(a, n) for a in (val, gx, gy))
+        return ps.sample_patches(images3d, ux.contiguous(), uy.contiguous(),
+                                 img[:ux.shape[1]], (H, W), want_grads)
 
     return _batched_fns(model, sample)
 
 
 def make_kernel_fused_solver(model: str, images_flat: torch.Tensor, H: int,
-                             W: int, img_of_group, group_counts, *,
+                             W: int, problem: ba.BAProblem, *,
                              device="cuda"):
-    """Fused chunk-plan solver whose sampling runs through the patch
-    kernel, on ``device``; solve problems produced by
-    ``imagesort_problem`` with ``fused.plan_for_problem`` of them.
-    Returns ``solve`` with ``.build``, ``.solve_lam``, ``.fns`` and the
-    ``.images`` stack."""
+    """Fused solver whose sampling runs through the patch kernel, on
+    ``device``: call as ``solve(problem, fused.plan_for_problem(problem),
+    cfg)`` (chunk build), with a problem of the same observations as
+    ``problem``, in their own order.  Returns ``solve`` with ``.build``,
+    ``.solve_lam``, ``.fns`` and the ``.images`` stack."""
     device = devices.resolve(device)
     images_flat = images_flat.to(device=device, dtype=torch.float32)
-    res_b, rj_b = make_batched_fns(model, images_flat, H, W, img_of_group,
-                                   group_counts)
+    res_b, rj_b = make_batched_fns(model, images_flat, H, W,
+                                   _column_images(problem, device))
     solve = _solver_on(device, res_b, rj_b)
     solve.images = images_flat.reshape(-1, H, W)
     return solve
 
 
 def make_kernel_dense_solver(model: str, images_flat: torch.Tensor, H: int,
-                             W: int, problem_slot: ba.BAProblem,
-                             n_images: int, *, device="cuda"):
+                             W: int, problem_slot: ba.BAProblem, *,
+                             device="cuda"):
     """Fused dense-assembly solver (``build_dense``, slot-major layout)
     whose sampling runs through the patch kernel, on ``device``.
 
     ``problem_slot`` must be the slot-major problem of
     ``fused.densify_problem``; pass the matching ``DenseLmSchurPlan`` to
-    ``solve``.  The kernel needs observations grouped by target image, the
-    dense build needs them slot-major: two static permutations, ``take_g``
-    (group row -> slot row) and ``g_of_s`` (slot row -> group row), bridge
-    the two orders around the sampler only.  Returns ``solve`` with
-    ``.build``, ``.solve_lam`` and ``.fns``."""
+    ``solve``.  The kernel samples the slot rows as they are, empty slots
+    as zero columns.  Returns ``solve`` with ``.build``, ``.solve_lam``
+    and ``.fns``."""
     device = devices.resolve(device)
-    timg_slot = problem_slot.obs.aux.target_img.cpu().numpy()
-    Os = timg_slot.shape[0]
-    order, iog, gcnt = ps.group_layout(timg_slot, n_images)
-    take_g = np.where(order >= 0, order, 0)
-    g_of_s = np.zeros(Os, np.int64)
-    g_of_s[order[order >= 0]] = np.flatnonzero(order >= 0)
-    take_g = torch.as_tensor(take_g, device=device)
-    g_of_s = torch.as_tensor(g_of_s, device=device)
-    images3d, iog, gcnt = _group_tensors(images_flat, H, W, iog, gcnt, device)
-
-    def sample(ux, uy, aux, want_grads):
-        val, gx, gy = ps.sample_patches_grouped(
-            images3d, ux[:, take_g], uy[:, take_g], iog, gcnt, (H, W),
-            want_grads)
-        n = ux.shape[1]
-        return tuple(_pad_cols(a[:, g_of_s], n) for a in (val, gx, gy))
-
-    return _solver_on(device, *_batched_fns(model, sample))
+    images_flat = images_flat.to(device=device, dtype=torch.float32)
+    return _solver_on(device, *make_batched_fns(
+        model, images_flat, H, W, _column_images(problem_slot, device)))

@@ -8,6 +8,9 @@ JAX package's ``scripts/profile_pba.py``: EuRoC V1's image count and size
 with uniform tracks (every landmark seen by the next 5 images), the
 workload of the JAX package's dense photometric benchmark.
 
+``wide_image_state`` is a pinhole toy state for the megakernel on an
+image 8448 pixels wide, a linear ramp whose samples are exact.
+
 ``synth_pba_pipe`` builds a map-like object that ``refine_photometric`` of
 both packages accepts: stereo image pairs rendered from inside a textured
 sphere ("room"), ground-truth poses, a perturbed map (poses and inverse
@@ -34,6 +37,56 @@ import torch
 from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import cameras, se3
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
+
+# ---------------------------------------------------------------------------
+# an image wider than the TPU kernel's column field
+# ---------------------------------------------------------------------------
+
+
+def wide_image_state(N: int = 300, seed: int = 0, *, device="cuda"):
+    """A pinhole toy state whose projections land at x in [8000, 8440] of
+    a 16 x 8448 linear ramp I = a x + b y + c (wider than the TPU kernel's
+    14-bit column field): two cameras at the identity rotation, the second
+    1 mm to the side (a parallax of about 8 px, so the inverse-depth column
+    of the Jacobian is not zero), bearings aimed at the targets, unit
+    inverse depths, zero affine and reference patch, and every fifth
+    column a zero column, on ``device``.  Returns (images,
+    cams, rho, consts, (a, b, c)): the megakernel's inputs
+    (``ops.pba_mega.mega_fused``) and the ramp's coefficients."""
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+
+    device = devices.resolve(device)
+    H, W, P = 16, 8448, pba_mega.P
+    a, b, c = 0.01, 0.5, 10.0
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64),
+                            torch.arange(W, dtype=torch.float64),
+                            indexing="ij")
+    images = (a * xs + b * ys + c).float()[None].repeat(2, 1, 1)
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(8000, 8430, (P, N))
+    v = rng.uniform(0.5, H - 1.5, (P, N))
+    d = np.stack([u, v, np.ones_like(u)])                     # (3, P, N)
+    d = d / np.linalg.norm(d, axis=0)
+    idx = np.zeros((N,), np.int64)
+    timg = np.where(np.arange(N) % 5 == 4, -1, np.arange(N) % 2)
+    f32 = dict(dtype=torch.float32, device=device)
+    intr = torch.zeros((8, N), **f32)
+    intr[0:2] = 1.0                                           # fx = fy = 1
+    pose = torch.zeros((2, 7), **f32)
+    pose[:, 6] = 1.0
+    pose[1, 0] = -1e-3
+    cams = pba.PhotometricCams(pose=pose, affine=torch.zeros((2, 2), **f32))
+    rho = torch.ones((1,), **f32)
+    i64 = dict(dtype=torch.int64, device=device)
+    an = torch.as_tensor(idx, **i64)
+    tn = torch.as_tensor(np.arange(N) % 2, **i64)
+    tg = torch.as_tensor(timg, **i64)
+    consts = pba_mega.MegaConsts(
+        d3=torch.as_tensor(d.reshape(3 * P, N), **f32), intr_t=intr,
+        refp=torch.zeros((P, N), **f32), an=an, tn=tn, lm=an, timg=tg,
+        cols=torch.stack([an, tn, an, tg]).to(torch.int32))
+    return images.to(device), cams, rho, consts, (a, b, c)
+
 
 # ---------------------------------------------------------------------------
 # the JAX package's sphere problem

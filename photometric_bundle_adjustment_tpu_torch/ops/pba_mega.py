@@ -7,15 +7,13 @@ families: the chunk-plan family for ragged maps and the dense slot-major
 family (``plan_slot``) for near-uniform observation counts.  Each LM try
 runs:
 
-  phase 1 (``warp_slabs``, PyTorch, plane layout): pose gathers, the
+  phase 1 (``mega_fused``, the CUDA kernel of ``csrc/pba_mega.cu``): for
+    every column of the layout, from the state (poses, affine brightness,
+    inverse depths) and the static columns of ``make_mega_consts``: the
     ray-form warp q = M d + rho u, the model projection with its analytic
-    Jacobian (``core/camera_slab.py``) and the two 13-column coefficient
-    slabs GA/GB with J_geo[p, k] = gx[p] GA[k*P+p] + gy[p] GB[k*P+p];
-
-  phase 2 (``mega_rj``, the CUDA kernel of ``csrc/pba_mega.cu``; its plain
-    PyTorch version is ``mega_rj_reference``): sampling, residual, Huber
-    weight, Jacobian rows and the per-observation Schur payloads, as one
-    (184, Og) f32 array laid out as the TPU kernel's:
+    Jacobian, sampling, residual, Huber weight, Jacobian rows and the
+    per-observation Schur payloads, as one (184, N) f32 array laid out as
+    the TPU kernel's:
 
       [0:136)    sqrt(weight)-scaled Jacobian rows p-major: row p*17 + c,
                  c in W order [se3_a(6), aff_a(2), se3_c(6), aff_c(2), rho]
@@ -25,29 +23,38 @@ runs:
       [162:179)  A1 = J^T r
       [179:184)  zero
 
-  phase 3, chunk family (``build_mega_chunk``): chunk-plan normal-equation
-    assembly over the valid observations (``optim/schur_plan.build_schur_plan``
-    built in group space), and ``solve_lam``: the damped reduced camera
-    system by Cholesky and back-substitution for the inverse depths;
+    Its plain PyTorch version, ``mega_fused_reference``, is the JAX
+    package's two steps: ``warp_slabs`` (the warp, the projection
+    (``core/camera_slab.py``) and the two 13-column coefficient slabs
+    GA/GB with J_geo[p, k] = gx[p] GA[k*P+p] + gy[p] GB[k*P+p]), then
+    ``mega_rj_reference``;
 
-  phase 3, dense family (``build_mega2``): the payloads gathered to the
-    slot-major order of ``fused.densify_problem``, landmark reductions as
-    sums over the slot axis, the camera lifts as exact index-adds with the
-    anchor as one extra slot, and a component-major reduced system (row
-    c*K + k) with the coupling pre-scaled by sqrt(inv0); ``solve_lam2``
-    solves it.
+  phase 2, chunk family (``build_mega_chunk``): chunk-plan normal-equation
+    assembly (``optim/schur_plan.build_schur_plan`` on the kernel's
+    columns), and ``solve_lam``: the damped reduced camera system by
+    Cholesky and back-substitution for the inverse depths;
+
+  phase 2, dense family (``build_mega2``): on the slot-major columns of
+    ``fused.densify_problem``, landmark reductions as sums over the slot
+    axis, the camera lifts as fixed-order sums with the anchor as one
+    extra slot, and a component-major reduced system (row c*K + k) with
+    the coupling pre-scaled by sqrt(inv0); ``solve_lam2`` solves it.
 
 ``BAConfig.sample_bf16`` picks the kernel's bf16 tier for a build: the
 kernel samples a bf16 copy of the image stack (made once per solver) and
 computes in f32 as the f32 tier does.
 
-Observations are laid out in 256-row groups sorted by target image
-(``mega_layout``).  Rows with lane >= cnt of their group are padding and
-come out of the kernel as exact zeros.  A non-finite projection makes that
-observation's residual and cost NaN, so the LM loop rejects the step.
-Sampling clamps to the image ([0, W-1.001]) with zero gradient outside it,
-as the gather sampler of ``models/photometric_ba.py`` does; the TPU
-kernel's 24x128 window clamp is a TPU artefact and is not ported.
+The kernel's columns are observation rows: the chunk family's are the
+valid observations sorted by target image plus one zero column for the
+plans' dummies; the dense family's are the slot rows, empty slots zero
+columns.  Each column reads its own image; there are no image groups and
+no padding rows.  Every sum of the assembly runs in an order fixed on the
+host (``optim/fused.tree_sum``), so a build repeats bit for bit.  A
+non-finite projection makes that observation's residual and cost NaN, so
+the LM loop rejects the step.  Sampling clamps to the image ([0, W-1.001])
+with zero gradient outside it, as the gather sampler of
+``models/photometric_ba.py`` does; the TPU kernel's 24x128 window clamp
+is a TPU artefact and is not ported.
 """
 
 from __future__ import annotations
@@ -75,51 +82,56 @@ from photometric_bundle_adjustment_tpu_torch.optim.fused import (
     full_f32,
     plan_to,
     solve_lam,
+    tree_sum,
 )
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     DenseLmSchurPlan,
     SchurPlan,
-    _chunk_segments,
+    SegmentTree,
     build_schur_plan,
+    build_segment_tree,
 )
 
 P = 8            # DSO patch size
-GROUP = 256      # observations per group (one CUDA block)
 OUT_ROWS = 184
 ROW_COST = 144
 C = 8            # camera tangent: se3(6) + affine(2)
 # chunk sizes of the segment-sum plans (observations per chunk)
 PAIR_CHUNK, LM_CHUNK, CAM_CHUNK = 32, 8, 256
+# the kernel's camera models, in the order of its template argument
+MODELS = ("pinhole", "eucm", "ds", "kb4")
 
-# Launches of the CUDA kernel by ``mega_rj`` in this process: the f32
-# entry (an f32 image stack) and the bf16 entry (a bf16 stack).
+# Launches of the CUDA kernel by ``mega_fused`` in this process: the f32
+# tier (an f32 image stack) and the bf16 tier (a bf16 stack).
 KERNEL_LAUNCHES = 0
 KERNEL_LAUNCHES_BF16 = 0
 
 
 class MegaConsts(NamedTuple):
-    """Static (per-solve) slabs in group order, on the solve's device."""
+    """Static (per-solve) columns of the kernel, one per row of its
+    output, on the solve's device.  A column whose image is -1 is a zero
+    column (the plans' dummy, or an empty slot)."""
 
-    d3: torch.Tensor      # (3P, Og) unit anchor-patch bearings, row j*P+p
-    intr_t: torch.Tensor  # (8, Og) target intrinsics slab
-    refp: torch.Tensor    # (P, Og) reference patch intensities
-    an: torch.Tensor      # (Og,) int64 anchor camera
-    tn: torch.Tensor      # (Og,) int64 target camera
-    lm: torch.Tensor      # (Og,) int64 landmark
-    iog: torch.Tensor     # (ng,) int32 image of group
-    cnt: torch.Tensor     # (ng,) int32 valid observations per group
+    d3: torch.Tensor      # (3P, N) unit anchor-patch bearings, row j*P+p
+    intr_t: torch.Tensor  # (8, N) target intrinsics
+    refp: torch.Tensor    # (P, N) reference patch intensities
+    an: torch.Tensor      # (N,) int64 anchor camera
+    tn: torch.Tensor      # (N,) int64 target camera
+    lm: torch.Tensor      # (N,) int64 landmark
+    timg: torch.Tensor    # (N,) int64 target image; -1 = zero column
+    cols: torch.Tensor    # (4, N) int32 rows [an, tn, lm, timg]: the kernel's
 
 
 class MegaPlan(NamedTuple):
-    """Dense-family assembly plan: group-space pair chunks and the
-    slot-space lift tables of a ``DenseLmSchurPlan``; int64 on the solve's
-    device."""
+    """Dense-family assembly plan over the slot rows of a
+    ``DenseLmSchurPlan``; int64 on the solve's device."""
 
-    pg: torch.Tensor          # (NCp, Bp) group rows; dummy -> zrow
-    cc_rows4: torch.Tensor    # (NCp, 4) rows into K*K [+1 dropped]
-    g_of_s: torch.Tensor      # (Os,) slot row -> group row; padding -> zrow
+    pg: torch.Tensor          # (NCp, Bp) slot rows; dummy -> a zero column
+    cc_seg: SegmentTree       # the pair-chunk blocks into the K*K rows
     lm_cam: torch.Tensor      # (S, L) target camera of each slot; K = padding
     anchor_cam_of_lm: torch.Tensor  # (L,) anchor camera; K = no observation
+    m_seg: SegmentTree        # S slots + the anchor into L*K lift rows
+    gc_seg: SegmentTree       # S slots + the anchor into the K cameras
 
 
 # ---------------------------------------------------------------------------
@@ -127,136 +139,96 @@ class MegaPlan(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def mega_layout(target_img: np.ndarray, valid: np.ndarray, n_images: int):
-    """Group layout over VALID observations: rows sorted by target image,
-    each image's range padded to a GROUP multiple.
-
-    Returns ``(order, img_of_group, group_counts, g_of_s, zrow)``: ``order``
-    maps group rows to slot rows (-1 = padding), ``g_of_s`` maps slot rows
-    to group rows (invalid slots -> ``zrow``), and ``zrow`` is a padding
-    group row, whose kernel output is exactly zero."""
-    ti = np.asarray(target_img)
-    v = np.asarray(valid).astype(bool)
-    Os = ti.shape[0]
-    vidx = np.flatnonzero(v)
-    counts = np.bincount(ti[vidx], minlength=n_images)
-    padded = -(-counts // GROUP) * GROUP
-    if padded.sum() == counts.sum():
-        # no padding row anywhere: append one empty group for the zero row
-        padded[0] += GROUP
-    offs = np.r_[0, np.cumsum(padded)]
-    order = np.full(offs[-1], -1, np.int64)
-    sort_idx = vidx[np.argsort(ti[vidx], kind="stable")]
-    starts = np.r_[0, np.cumsum(counts)]
-    for i in range(n_images):
-        if counts[i]:
-            order[offs[i]: offs[i] + counts[i]] = (
-                sort_idx[starts[i]: starts[i] + counts[i]]
-            )
-    img_of_group = np.repeat(np.arange(n_images), padded // GROUP)
-    slot_base = np.arange(offs[-1]) - np.repeat(offs[:-1], padded)
-    grp_start = slot_base[::GROUP]
-    cnt_img = np.repeat(counts, padded // GROUP)
-    group_counts = np.clip(cnt_img - grp_start, 0, GROUP)
-    zrow = int(np.flatnonzero(order < 0)[0])
-    g_of_s = np.full(Os, zrow, np.int64)
-    g_of_s[order[order >= 0]] = np.flatnonzero(order >= 0)
-    return (order, img_of_group.astype(np.int32),
-            group_counts.astype(np.int32), g_of_s, zrow)
+def _numpy(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def build_chunk_mega_plan(problem: ba.BAProblem, n_images: int):
+def build_chunk_mega_plan(problem: ba.BAProblem, by_image: bool = True):
     """Chunk-plan layout for a ragged photometric problem (host, numpy).
 
-    Lays the kernel out over valid observations only and builds the
-    chunked segment-sum plans of ``build_schur_plan`` directly in group
-    space, with exact chunk counts (no power-of-two padding: PyTorch
-    compiles nothing per shape).  Returns ``(cplan, meta, idx_arrays)``;
-    feed ``meta`` and ``idx_arrays`` to ``make_mega_consts`` and ``cplan``
-    to ``plan_to``."""
+    The kernel's columns are the valid observations, sorted by target
+    image (stable) with ``by_image``, else in the problem's order, and
+    one zero column after them, which the plans' dummy entries gather.
+    The chunked segment-sum plans of ``build_schur_plan`` are built on
+    those columns, with exact chunk counts (no power-of-two padding:
+    PyTorch compiles nothing per shape).  Returns ``(cplan, rows)``:
+    ``rows`` (N,) maps each column to its observation row (-1 for the zero
+    column); feed it to ``make_mega_consts`` and ``cplan`` to
+    ``plan_to``."""
     o = problem.obs
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
-    valid = o.valid.cpu().numpy() != 0
-    timg = o.aux.target_img.cpu().numpy()
-    order, iog, cnt, g_of_s, zrow = mega_layout(timg, valid, n_images)
-    Og = order.shape[0]
-    take = np.where(order >= 0, order, 0)
-    an_g = o.anchor_cam.cpu().numpy()[take].astype(np.int32)
-    tn_g = o.target_cam.cpu().numpy()[take].astype(np.int32)
-    lm_g = o.landmark.cpu().numpy()[take].astype(np.int32)
+    vidx = np.flatnonzero(_numpy(o.valid) != 0)
+    if by_image:
+        timg = _numpy(o.aux.target_img)
+        vidx = vidx[np.argsort(timg[vidx], kind="stable")]
     cplan = build_schur_plan(
-        an_g, tn_g, lm_g, K, L, valid=(order >= 0),
-        pair_chunk=PAIR_CHUNK, lm_chunk=LM_CHUNK, cam_chunk=CAM_CHUNK,
-        pow2_buckets=False,
+        _numpy(o.anchor_cam)[vidx], _numpy(o.target_cam)[vidx],
+        _numpy(o.landmark)[vidx], K, L, pair_chunk=PAIR_CHUNK,
+        lm_chunk=LM_CHUNK, cam_chunk=CAM_CHUNK, pow2_buckets=False,
     )
-    meta = dict(order=order, take=take, Og=Og, zrow=zrow)
-    return cplan, meta, (an_g, tn_g, lm_g, iog, cnt)
+    return cplan, np.r_[vidx, -1]
 
 
-def build_mega_plan(problem_slot: ba.BAProblem,
-                    plan_slot: DenseLmSchurPlan, n_images: int):
+def build_mega_plan(problem_slot: ba.BAProblem, plan_slot: DenseLmSchurPlan):
     """Dense-family layout for a slot-major problem (host, numpy).
 
-    ``problem_slot``/``plan_slot`` come from ``fused.densify_problem``.  The
-    group layout (``mega_layout``), the pair chunks in group space and the
-    slot-to-group map are built here; the lift tables are the dense
-    plan's.  Chunk counts are exact (no bucket padding).  Returns
-    ``(plan, meta, idx_arrays)``: feed ``plan`` to ``plan_to`` and ``meta``
-    and ``idx_arrays`` to ``make_mega_consts``."""
-    o = problem_slot.obs
+    ``problem_slot``/``plan_slot`` come from ``fused.densify_problem``.
+    The kernel's columns are the S x L slot rows, empty slots zero
+    columns; the pair chunks' dummies gather the first empty slot, or one
+    zero column appended where every slot is filled.  Returns ``(plan,
+    rows)`` as ``build_chunk_mega_plan``: feed ``plan`` to ``plan_to``."""
     K = problem_slot.cam_states.pose.shape[0]
-    valid = o.valid.cpu().numpy() != 0
-    timg = o.aux.target_img.cpu().numpy()
-    order, iog, cnt, g_of_s, zrow = mega_layout(timg, valid, n_images)
-    take = np.where(order >= 0, order, 0)
-    an_g = o.anchor_cam.cpu().numpy()[take].astype(np.int32)
-    tn_g = o.target_cam.cpu().numpy()[take].astype(np.int32)
-    lm_g = o.landmark.cpu().numpy()[take].astype(np.int32)
-
-    # camera-pair Gram chunks over the valid group rows; dummies -> zrow
-    gv = np.flatnonzero(order >= 0)
-    gidx, prows = _chunk_segments(an_g[gv].astype(np.int64) * K + tn_g[gv],
-                                  PAIR_CHUNK)
-    pg = np.where(gidx >= 0, gv[np.clip(gidx, 0, None)], zrow)
-    pa, pc = prows // K, prows % K
-    cc_rows4 = np.stack([pa * K + pa, pa * K + pc, pc * K + pa, pc * K + pc],
-                        1)
-    plan = MegaPlan(pg=pg, cc_rows4=cc_rows4, g_of_s=g_of_s,
-                    lm_cam=plan_slot.lm_cam,
-                    anchor_cam_of_lm=plan_slot.anchor_cam_of_lm)
-    meta = dict(order=order, take=take, Og=order.shape[0], zrow=zrow)
-    return plan, meta, (an_g, tn_g, lm_g, iog, cnt)
+    valid = _numpy(problem_slot.obs.valid) != 0
+    Os = valid.shape[0]
+    rows = np.where(valid, np.arange(Os), -1)
+    empty = np.flatnonzero(~valid)
+    if empty.size:
+        zrow = int(empty[0])
+    else:
+        zrow, rows = Os, np.r_[rows, -1]
+    pg = _numpy(plan_slot.pg)
+    lm_cam = _numpy(plan_slot.lm_cam)
+    anchor = _numpy(plan_slot.anchor_cam_of_lm)
+    ext = np.concatenate([lm_cam, anchor[None]], 0)
+    plan = MegaPlan(pg=np.where(pg >= Os, zrow, pg), cc_seg=plan_slot.cc_seg,
+                    lm_cam=lm_cam, anchor_cam_of_lm=anchor,
+                    m_seg=plan_slot.m_seg,
+                    gc_seg=build_segment_tree(ext, K))
+    return plan, rows
 
 
-def make_mega_consts(model: str, problem: ba.BAProblem, meta,
-                     idx_arrays) -> MegaConsts:
-    """The static group-order slabs, on the problem's device."""
-    an_g, tn_g, lm_g, iog, cnt = idx_arrays
+def make_mega_consts(model: str, problem: ba.BAProblem,
+                     rows) -> MegaConsts:
+    """The static columns of observation rows ``rows`` (-1: a zero
+    column), on the problem's device."""
     dev = problem.inv_depth.device
     dtype = problem.inv_depth.dtype
-    take = torch.as_tensor(meta["take"], device=dev)
-    aux = problem.obs.aux
+    rows = torch.as_tensor(np.asarray(rows), device=dev)
+    ok = rows >= 0
+    take = torch.where(ok, rows, torch.zeros_like(rows))
+    o = problem.obs
+    aux = o.aux
     offs = torch.as_tensor(PATCH_OFFSETS, dtype=dtype, device=dev)
-    uv_patch = aux.uv_ref[take][:, None, :] + offs[None]      # (Og, P, 2)
+    uv_patch = aux.uv_ref[take][:, None, :] + offs[None]      # (N, P, 2)
     dirs = cameras.unproject_unit(
         model, aux.intr_ref[take][:, None, :], uv_patch
-    )                                                         # (Og, P, 3)
-
-    def idx(x, dt=torch.int64):
-        return torch.as_tensor(np.asarray(x), device=dev).to(dt)
-
+    )                                                         # (N, P, 3)
+    an, tn, lm = (x[take].long() for x in (o.anchor_cam, o.target_cam,
+                                            o.landmark))
+    timg = torch.where(ok, aux.target_img[take].long(),
+                       torch.full_like(take, -1))
     return MegaConsts(
         d3=dirs.permute(2, 1, 0).reshape(3 * P, -1).contiguous(),
         intr_t=aux.intr_target[take].T.contiguous(),
         refp=aux.ref_patch[take].T.contiguous(),
-        an=idx(an_g), tn=idx(tn_g), lm=idx(lm_g),
-        iog=idx(iog, torch.int32), cnt=idx(cnt, torch.int32),
+        an=an, tn=tn, lm=lm, timg=timg,
+        cols=torch.stack([an, tn, lm, timg]).to(torch.int32).contiguous(),
     )
 
 
 # ---------------------------------------------------------------------------
-# phase 1: warp + projection + Jacobian coefficient slabs
+# phase 1, plain version: the warp slabs, then the payload from them
 # ---------------------------------------------------------------------------
 
 
@@ -274,16 +246,17 @@ def _rot_planes(q):
 
 
 def warp_slabs(model: str, cam_states, inv_depth, consts: MegaConsts):
-    """Group-order plane-layout warp evaluation.
+    """Plane-layout warp evaluation over the columns of ``consts``: the
+    first half of the kernel's plain version.
 
-    Returns (ux, uy, fin, GA, GB): pixel planes (P, Og) with non-finite
-    projections replaced by -1e6, the finite mask (P, Og), and the two
-    (104, Og) Jacobian coefficient slabs (k-major rows k*P + p).
+    Returns (ux, uy, fin, GA, GB): pixel planes (P, N) with non-finite
+    projections replaced by -1e6, the finite mask (P, N), and the two
+    (104, N) Jacobian coefficient slabs (k-major rows k*P + p).
     """
     poses = cam_states.pose
-    pa = poses[consts.an]                                     # (Og, 7)
+    pa = poses[consts.an]                                     # (N, 7)
     pc = poses[consts.tn]
-    rho = inv_depth[consts.lm][None, :]                       # (1, Og)
+    rho = inv_depth[consts.lm][None, :]                       # (1, N)
     Ra = _rot_planes(pa[:, 3:7])
     Rc = _rot_planes(pc[:, 3:7])
     # M = Rc^T Ra;  u = Rc^T (ta - tc)
@@ -294,7 +267,7 @@ def warp_slabs(model: str, cam_states, inv_depth, consts: MegaConsts):
     u = [(Rc[0][j] * dt[0] + Rc[1][j] * dt[1] + Rc[2][j] * dt[2])[None, :]
          for j in range(3)]
 
-    d = [consts.d3[j * P:(j + 1) * P] for j in range(3)]      # 3 x (P, Og)
+    d = [consts.d3[j * P:(j + 1) * P] for j in range(3)]      # 3 x (P, N)
     q = [M[j][0] * d[0] + M[j][1] * d[1] + M[j][2] * d[2] + rho * u[j]
          for j in range(3)]
 
@@ -318,7 +291,7 @@ def warp_slabs(model: str, cam_states, inv_depth, consts: MegaConsts):
                    Jp[0] * q[1] - Jp[1] * q[0]]
         # drho: Jpi . u
         blocks += [Jp[0] * u[0] + Jp[1] * u[1] + Jp[2] * u[2]]
-        return torch.cat(blocks, dim=0)                       # (104, Og)
+        return torch.cat(blocks, dim=0)                       # (104, N)
 
     GA = coeff(Jpi0)
     GB = coeff(Jpi1)
@@ -330,44 +303,37 @@ def warp_slabs(model: str, cam_states, inv_depth, consts: MegaConsts):
 
 
 def affine_slab(affine: torch.Tensor, consts: MegaConsts) -> torch.Tensor:
-    """(4, Og) rows [a_r, b_r, a_t, b_t] of the anchor and target cameras."""
+    """(4, N) rows [a_r, b_r, a_t, b_t] of the anchor and target cameras."""
     aa = affine[consts.an]
     at = affine[consts.tn]
     return torch.stack([aa[:, 0], aa[:, 1], at[:, 0], at[:, 1]], dim=0)
 
 
-# ---------------------------------------------------------------------------
-# phase 2: the megakernel and its plain version
-# ---------------------------------------------------------------------------
-
-
-def mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
+def mega_rj_reference(images, ux, uy, GA, GB, refp, aff, timg,
                       huber_delta: float):
-    """Plain PyTorch version of the megakernel: the (184, Og) payload.
+    """The second half of the kernel's plain version: sampling, residual,
+    Huber weight and the (184, N) payload from the warp's planes.
 
     ``images`` is the (Kimg, H, W) f32 or bf16 stack (a bf16 stack is
-    widened to f32, which is exact); ``ux``/``uy`` (P, Og) are the pixel
-    planes of ``warp_slabs``; ``GA``/``GB`` (104, Og); ``refp`` (P, Og);
-    ``aff`` (4, Og) rows [a_r, b_r, a_t, b_t]; ``iog``/``cnt`` (Og / 256,)
-    the image and valid-row count of each group."""
+    widened to f32, which is exact); ``ux``/``uy`` (P, N) are the pixel
+    planes of ``warp_slabs``; ``GA``/``GB`` (104, N); ``refp`` (P, N);
+    ``aff`` (4, N) rows [a_r, b_r, a_t, b_t]; ``timg`` (N,) the image of
+    each column, negative for a zero column."""
     images = images.float()
     _, H, W = images.shape
-    Og = ux.shape[1]
-    dev = ux.device
-    rows = torch.arange(Og, device=dev)
-    grp = rows // GROUP
-    slot_ok = (rows % GROUP) < cnt.long()[grp]                # (Og,)
-    img = iog.long()[grp]
+    N = ux.shape[1]
+    ok = timg >= 0
+    img = torch.where(ok, timg, torch.zeros_like(timg)).long()
     val, gx, gy = bilinear_sample_and_grad(
         images.reshape(-1), img[None, :], torch.stack([ux, uy], dim=-1), H, W
-    )                                                         # (P, Og) each
+    )                                                         # (P, N) each
 
     fin = ux > -1e5
-    e = torch.exp(aff[2] - aff[0])                            # (Og,)
-    ref_term = refp - aff[1]                                  # (P, Og)
+    e = torch.exp(aff[2] - aff[0])                            # (N,)
+    ref_term = refp - aff[1]                                  # (P, N)
     r = (val - aff[3]) - e * ref_term
     r = torch.where(fin, r, torch.full_like(r, math.nan))
-    r2 = torch.sum(r * r, dim=0)                              # (Og,)
+    r2 = torch.sum(r * r, dim=0)                              # (N,)
     if huber_delta > 0:
         sq = torch.sqrt(r2)
         inl = r2 <= huber_delta * huber_delta
@@ -381,106 +347,127 @@ def mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
     sw = torch.sqrt(w)
 
     Jgeo = ((gx.repeat(13, 1) * GA + gy.repeat(13, 1) * GB) * sw
-            ).reshape(13, P, Og)
+            ).reshape(13, P, N)
     blocks17 = torch.cat([
         Jgeo[0:6],
-        (e * ref_term * sw)[None], (e * sw).expand(P, Og)[None],
+        (e * ref_term * sw)[None], (e * sw).expand(P, N)[None],
         Jgeo[6:12],
-        (-e * ref_term * sw)[None], (-sw).expand(P, Og)[None],
+        (-e * ref_term * sw)[None], (-sw).expand(P, N)[None],
         Jgeo[12:13],
-    ], dim=0)                                                 # (17, P, Og)
+    ], dim=0)                                                 # (17, P, N)
     rsw = r * sw
-    A0 = torch.sum(blocks17 * blocks17[16][None], dim=1)      # (17, Og)
+    A0 = torch.sum(blocks17 * blocks17[16][None], dim=1)      # (17, N)
     A1 = torch.sum(blocks17 * rsw[None], dim=1)
     out = torch.cat([
-        blocks17.permute(1, 0, 2).reshape(P * 17, Og),
+        blocks17.permute(1, 0, 2).reshape(P * 17, N),
         rsw, cost[None], A0, A1,
-        torch.zeros((OUT_ROWS - 179, Og), dtype=ux.dtype, device=dev),
+        torch.zeros((OUT_ROWS - 179, N), dtype=ux.dtype, device=ux.device),
     ], dim=0)
-    # padding rows are exact zeros (the chunk plans gather dummies there)
-    return torch.where(slot_ok[None, :], out, torch.zeros_like(out))
+    # zero columns are exact zeros (the chunk plans gather dummies there)
+    return torch.where(ok[None, :], out, torch.zeros_like(out))
 
 
-def _kernel_fn(bf16: bool):
+def mega_fused_reference(model: str, images, cam_states, inv_depth,
+                         consts: MegaConsts, huber_delta: float):
+    """Plain PyTorch version of the megakernel: ``warp_slabs`` then
+    ``mega_rj_reference`` on the columns of ``consts``."""
+    ux, uy, _, GA, GB = warp_slabs(model, cam_states, inv_depth, consts)
+    aff = affine_slab(cam_states.affine, consts)
+    return mega_rj_reference(images, ux, uy, GA, GB, consts.refp, aff,
+                             consts.timg, huber_delta)
+
+
+def _lib():
     lib = _build.load("pba_mega")
-    fn = lib.pba_mega_rj_bf16 if bf16 else lib.pba_mega_rj
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,      # images, H, W
-            ctypes.c_void_p, ctypes.c_void_p,                 # ux, uy
-            ctypes.c_void_p, ctypes.c_void_p,                 # GA, GB
-            ctypes.c_void_p, ctypes.c_void_p,                 # refp, aff
-            ctypes.c_void_p, ctypes.c_void_p,                 # iog, cnt
-            ctypes.c_int, ctypes.c_float,                     # Og, huber
-            ctypes.c_void_p, ctypes.c_void_p,                 # out, stream
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.pba_mega_fused.argtypes is None:
+        lib.pba_mega_fused.argtypes = (
+            [ctypes.c_int] * 3                               # model, bf16, map
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # images, H, W
+            + [ctypes.c_void_p] * 7      # pose, affine, rho, cols, d3, intr, refp
+            + [ctypes.c_int, ctypes.c_float]                 # N, huber
+            + [ctypes.c_void_p, ctypes.c_void_p])            # out, stream
+        lib.pba_mega_fused.restype = ctypes.c_int
+        lib.pba_cuda_error_string.restype = ctypes.c_char_p
+        lib.pba_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
-def _check_kernel_inputs(images, ux, uy, GA, GB, refp, aff, iog, cnt):
-    dev = images.device
+def _check_kernel_inputs(model, images, cam_states, inv_depth,
+                         consts: MegaConsts):
+    if model not in MODELS:
+        raise ValueError(f"camera model {model!r} is not one of {MODELS}")
     if images.dim() != 3:
         raise ValueError(f"images must be (Kimg, H, W), got {tuple(images.shape)}")
-    if ux.dim() != 2:
-        raise ValueError(f"ux must be ({P}, Og), got {tuple(ux.shape)}")
-    Og = ux.shape[1]
-    if Og == 0 or Og % GROUP:
-        raise ValueError(f"Og={Og} must be a positive multiple of {GROUP}")
-    ng = Og // GROUP
-    f32, i32 = torch.float32, torch.int32
-    if images.dtype not in (f32, torch.bfloat16):
+    if images.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"images must be torch.float32 or torch.bfloat16, "
                          f"got {images.dtype}")
+    N = consts.cols.shape[-1]
+    K = cam_states.pose.shape[0]
+    f32 = torch.float32
     expect = {
         "images": (images, tuple(images.shape), images.dtype),
-        "ux": (ux, (P, Og), f32), "uy": (uy, (P, Og), f32),
-        "GA": (GA, (13 * P, Og), f32), "GB": (GB, (13 * P, Og), f32),
-        "refp": (refp, (P, Og), f32), "aff": (aff, (4, Og), f32),
-        "iog": (iog, (ng,), i32), "cnt": (cnt, (ng,), i32),
+        "pose": (cam_states.pose, (K, 7), f32),
+        "affine": (cam_states.affine, (K, 2), f32),
+        "inv_depth": (inv_depth, (inv_depth.shape[0],), f32),
+        "cols": (consts.cols, (4, N), torch.int32),
+        "d3": (consts.d3, (3 * P, N), f32),
+        "intr_t": (consts.intr_t, (8, N), f32),
+        "refp": (consts.refp, (P, N), f32),
     }
     for name, (t, shape, dtype) in expect.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, images on {dev}")
+        if t.device != images.device:
+            raise ValueError(f"{name} is on {t.device}, images on "
+                             f"{images.device}")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if N == 0:
+        raise ValueError("consts hold no column")
 
 
-def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
-            huber_delta: float):
-    """The megakernel payload (184, Og); arguments as ``mega_rj_reference``.
+def mega_fused(model: str, images, cam_states, inv_depth,
+               consts: MegaConsts, huber_delta: float,
+               per_point: bool = True):
+    """The megakernel payload (184, N) of the columns of ``consts`` at the
+    state (``cam_states``: pose (K, 7), affine (K, 2); ``inv_depth``
+    (L,)), sampling the (Kimg, H, W) f32 or bf16 ``images``.
 
     On CUDA tensors it launches the kernel of ``csrc/pba_mega.cu`` on the
-    current stream (or raises): the f32 entry for an f32 stack, the bf16
-    entry for a bf16 one.  On CPU tensors it runs the plain version."""
+    current stream (or raises): the f32 tier for an f32 stack, the bf16
+    tier for a bf16 one; ``per_point`` picks its thread mapping (a warp
+    per patch point, else a thread per observation).  On CPU tensors it
+    runs the plain version, ``mega_fused_reference``.  Indices in
+    ``consts`` are trusted to be in range (``make_mega_consts`` makes them
+    from the problem)."""
     global KERNEL_LAUNCHES, KERNEL_LAUNCHES_BF16
     if images.device.type == "cpu":
-        return mega_rj_reference(images, ux, uy, GA, GB, refp, aff, iog, cnt,
-                                 huber_delta)
+        return mega_fused_reference(model, images, cam_states, inv_depth,
+                                    consts, huber_delta)
     if images.device.type != "cuda":
-        raise ValueError(f"mega_rj: unsupported device {images.device}")
-    _check_kernel_inputs(images, ux, uy, GA, GB, refp, aff, iog, cnt)
+        raise ValueError(f"mega_fused: unsupported device {images.device}")
+    cam_states = cam_states._replace(pose=cam_states.pose.contiguous(),
+                                     affine=cam_states.affine.contiguous())
+    inv_depth = inv_depth.contiguous()
+    _check_kernel_inputs(model, images, cam_states, inv_depth, consts)
     _, H, W = images.shape
-    Og = ux.shape[1]
+    N = consts.cols.shape[1]
     bf16 = images.dtype == torch.bfloat16
-    fn = _kernel_fn(bf16)
-    out = torch.empty((OUT_ROWS, Og), dtype=torch.float32,
+    lib = _lib()
+    out = torch.empty((OUT_ROWS, N), dtype=torch.float32,
                       device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    err = fn(images.data_ptr(), H, W, ux.data_ptr(), uy.data_ptr(),
-             GA.data_ptr(), GB.data_ptr(), refp.data_ptr(), aff.data_ptr(),
-             iog.data_ptr(), cnt.data_ptr(), Og, float(huber_delta),
-             out.data_ptr(), stream)
+    err = lib.pba_mega_fused(
+        MODELS.index(model), int(bf16), int(per_point), images.data_ptr(),
+        H, W, cam_states.pose.data_ptr(), cam_states.affine.data_ptr(),
+        inv_depth.data_ptr(), consts.cols.data_ptr(), consts.d3.data_ptr(),
+        consts.intr_t.data_ptr(), consts.refp.data_ptr(), N,
+        float(huber_delta), out.data_ptr(), stream)
     if err != 0:
-        lib = _build.load("pba_mega")
-        lib.pba_cuda_error_string.restype = ctypes.c_char_p
-        lib.pba_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.pba_cuda_error_string(err).decode()
-        raise RuntimeError(f"pba_mega_rj launch failed: {msg} ({err})")
+        raise RuntimeError(f"pba_mega_fused launch failed: {msg} ({err})")
     if bf16:
         KERNEL_LAUNCHES_BF16 += 1
     else:
@@ -489,36 +476,28 @@ def mega_rj(images, ux, uy, GA, GB, refp, aff, iog, cnt,
 
 
 # ---------------------------------------------------------------------------
-# phase 3: chunk-plan assembly and the damped solve
+# phase 1 on the card, then phase 2: assembly and the damped solve
 # ---------------------------------------------------------------------------
 
 
 def _payload(model: str, images, problem: ba.BAProblem, consts: MegaConsts,
              cfg: ba.BAConfig):
-    """Phases 1 and 2 of a build: the warp slabs and the megakernel's
-    (184, Og) payload."""
-    ux, uy, _fin, GA, GB = warp_slabs(
-        model, problem.cam_states, problem.inv_depth, consts
-    )
-    aff = affine_slab(problem.cam_states.affine, consts)
-    return mega_rj(images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
-                   consts.cnt, float(cfg.huber_delta))
+    """The megakernel's (184, N) payload of a build."""
+    return mega_fused(model, images, problem.cam_states, problem.inv_depth,
+                      consts, float(cfg.huber_delta))
 
 
-def _pair_gram(J2, pg, cc_rows4, K: int):
+def _pair_gram(J2, pg, cc_seg: SegmentTree, K: int):
     """H_cc (K, K, C, C) from the camera-pair Gram chunks over the kernel's
-    p-major Jacobian rows ``J2`` (rows, 136)."""
+    p-major Jacobian rows ``J2`` (rows, 136), summed into the K*K blocks
+    in the fixed order of ``cc_seg``."""
     rows = J2[pg]                                             # (NCp, Bp, 136)
     rows2 = rows.reshape(rows.shape[0], -1, 17)[..., :16]
     G2 = torch.bmm(rows2.transpose(1, 2), rows2)              # (NCp, 16, 16)
     blocks = torch.stack(
         [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
     ).reshape(-1, C * C)
-    return (
-        torch.zeros((K * K + 1, C * C), dtype=J2.dtype, device=J2.device)
-        .index_add_(0, cc_rows4.reshape(-1), blocks)[: K * K]
-        .reshape(K, K, C, C)
-    )
+    return tree_sum(blocks, cc_seg).reshape(K, K, C, C)
 
 
 def build_mega_chunk(model: str, images, problem: ba.BAProblem,
@@ -530,12 +509,13 @@ def build_mega_chunk(model: str, images, problem: ba.BAProblem,
     out = _payload(model, images, problem, consts, cfg)
 
     cost = torch.sum(out[ROW_COST])
-    # zero dummy row at index Og: the chunk plans' dummy gathers point there
-    outT = torch.nn.functional.pad(out.T, (0, 0, 0, 1))       # (Og+1, 184)
+    # observation-major, so each gather below reads whole rows; the last
+    # row is the zero row the plans' dummy gathers point at
+    outT = out.T.contiguous()                                 # (N, 184)
     dtype = outT.dtype
-    H_cc = _pair_gram(outT[:, :136], cplan.pg, cplan.cc_rows4, K)
+    H_cc = _pair_gram(outT[:, :136], cplan.pg, cplan.cc_seg, K)
 
-    A0 = outT[:, 145:162]                                     # (Og+1, 17)
+    A0 = outT[:, 145:162]                                     # (N, 17)
     A1 = outT[:, 162:179]
     pay_l = torch.cat([A0[:, :C], A0[:, 16:17], A1[:, 16:17]], dim=1)
     red_l = _chunk_sum(pay_l, cplan.lm, L)
@@ -549,10 +529,7 @@ def build_mega_chunk(model: str, images, problem: ba.BAProblem,
     oh = _one_hot(cplan.lm_cam, K, dtype)                     # (NC, B, K)
     rows_t = A0[:, C:2 * C][cplan.lm.gidx]                    # (NC, B, C)
     part = torch.bmm(oh.transpose(1, 2), rows_t)              # (NC, K, C)
-    M = (
-        torch.zeros((L + 1, K * C), dtype=dtype, device=out.device)
-        .index_add_(0, cplan.lm.rows, part.reshape(part.shape[0], K * C))[:L]
-    )
+    M = tree_sum(part.reshape(part.shape[0], K * C), cplan.lm.seg)
     oh_a = _one_hot(cplan.anchor_cam_of_lm, K, dtype)         # (L, K)
     M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
 
@@ -573,22 +550,24 @@ def build_mega2(model: str, images, problem: ba.BAProblem,
     The reduced system is COMPONENT-major (row c*K + k), ``g_c`` is
     (C, K), ``Ms`` (L, C*K) is the camera coupling scaled by s = sqrt(inv0)
     (so S_corr0 = Ms^T Ms and (M dc) inv0 = s (Ms dc)).  The camera lifts
-    are index-adds with the anchor as one extra virtual slot: exact f32
-    sums, as the JAX package's compare-and-reduce lifts, never a one-hot
-    product at reduced precision."""
+    are fixed-order sums with the anchor as one extra virtual slot
+    (``plan.m_seg``, ``plan.gc_seg``): exact f32 sums, as the JAX
+    package's compare-and-reduce lifts, never a one-hot product at reduced
+    precision."""
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
-    dev = problem.inv_depth.device
     out = _payload(model, images, problem, consts, cfg)
 
     cost = torch.sum(out[ROW_COST])
     dtype = out.dtype
-    H_cc = _pair_gram(out[:136].T, plan.pg, plan.cc_rows4, K)
+    # observation-major, so the pair gathers read whole rows
+    outT = out.T.contiguous()                                 # (N, 184)
+    H_cc = _pair_gram(outT[:, :136], plan.pg, plan.cc_seg, K)
     H_cc_mat = H_cc.permute(2, 0, 3, 1).reshape(K * C, K * C)
 
-    # payload rows in slot order (padding slots read the zero row zrow)
-    AB = out[145:179].T[plan.g_of_s]                          # (Os, 34)
+    # payload rows are the slot rows (empty slots are zero rows)
     S_ = plan.lm_cam.shape[0]
+    AB = outT[:S_ * L, 145:179]                               # (Os, 34)
     A0r = AB[:, :17].reshape(S_, L, 17)
     A1r = AB[:, 17:].reshape(S_, L, 17)
     red0 = A0r.sum(0)                                         # (L, 17)
@@ -600,19 +579,12 @@ def build_mega2(model: str, images, problem: ba.BAProblem,
     s = torch.sqrt(inv0)
 
     # lifts over S+1 slots, the anchor the extra one; camera K is dropped
-    lm_cam_ext = torch.cat([plan.lm_cam, plan.anchor_cam_of_lm[None]], 0)
     vt_ext = torch.cat([A0r[:, :, C:2 * C], anchor_v[None]], 0) \
         * s[None, :, None]                                    # (S+1, L, C)
-    lm_base = torch.arange(L, device=dev) * (K + 1)
-    Ms = (torch.zeros((L * (K + 1), C), dtype=dtype, device=dev)
-          .index_add_(0, (lm_base + lm_cam_ext).reshape(-1),
-                      vt_ext.reshape(-1, C))
-          .reshape(L, K + 1, C)[:, :K]
+    Ms = (tree_sum(vt_ext.reshape(-1, C), plan.m_seg).reshape(L, K, C)
           .permute(0, 2, 1).reshape(L, C * K))                # c-major columns
     a1_ext = torch.cat([A1r[:, :, C:2 * C], A1r[:, :, :C].sum(0)[None]], 0)
-    g_c = (torch.zeros((K + 1, C), dtype=dtype, device=dev)
-           .index_add_(0, lm_cam_ext.reshape(-1), a1_ext.reshape(-1, C))
-           [:K].T)                                            # (C, K)
+    g_c = tree_sum(a1_ext.reshape(-1, C), plan.gc_seg).T     # (C, K)
 
     S_corr0 = Ms.T @ Ms                                       # (C*K, C*K)
     rhs_corr0 = (s * g_p) @ Ms
@@ -635,20 +607,21 @@ def solve_lam2(neq, lam: float, free_cam_mask: torch.Tensor,
 
 
 def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
-                     problem_slot: ba.BAProblem, n_images: int,
-                     plan_slot=None, *, device="cuda"):
+                     problem_slot: ba.BAProblem, plan_slot=None, *,
+                     device="cuda"):
     """Megakernel photometric LM solver.
 
     With ``plan_slot`` (the ``DenseLmSchurPlan`` of a problem reordered by
     ``fused.densify_problem``): the dense slot-major family,
     ``build_mega_plan`` + ``build_mega2`` + ``solve_lam2``.  Without it:
-    the chunk-plan family over the valid observations,
-    ``build_chunk_mega_plan`` + ``build_mega_chunk`` + ``solve_lam``.
+    the chunk-plan family over the valid observations sorted by target
+    image, ``build_chunk_mega_plan`` + ``build_mega_chunk`` +
+    ``solve_lam``.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)``, with
     ``.build(problem, cfg)``, ``.solve_lam(neq, lam, free, cfg)``, the f32
     ``.images`` stack, ``.stack(cfg)`` (the stack a build with ``cfg``
-    samples), the group-order ``.consts`` and the ``.plan`` exposed.
+    samples), the kernel's ``.consts`` and the ``.plan`` exposed.
     ``problem_slot`` fixes the observation graph; ``solve`` takes a
     problem with the same observations and any state.  A build with
     ``cfg.sample_bf16`` samples a bf16 copy of the stack, made at the
@@ -661,15 +634,13 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     images = images_flat.to(device=device, dtype=torch.float32)
     images = images.reshape(-1, H, W).contiguous()
     if plan_slot is not None:
-        plan_np, meta, idx_arrays = build_mega_plan(problem_slot, plan_slot,
-                                                    n_images)
+        plan_np, rows = build_mega_plan(problem_slot, plan_slot)
         build_impl, solve_lam_impl = build_mega2, solve_lam2
     else:
-        plan_np, meta, idx_arrays = build_chunk_mega_plan(problem_slot,
-                                                          n_images)
+        plan_np, rows = build_chunk_mega_plan(problem_slot)
         build_impl, solve_lam_impl = build_mega_chunk, solve_lam
     plan = plan_to(plan_np, device)
-    consts = make_mega_consts(model, problem_slot, meta, idx_arrays)
+    consts = make_mega_consts(model, problem_slot, rows)
     stacks = {torch.float32: images}
 
     def stack(cfg: ba.BAConfig):

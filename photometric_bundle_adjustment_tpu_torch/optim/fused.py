@@ -38,6 +38,7 @@ from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     ChunkPlan,
     DenseLmSchurPlan,
     SchurPlan,
+    SegmentTree,
     build_dense_lm_plan,
     build_schur_plan,
 )
@@ -46,6 +47,8 @@ from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
 def plan_to(plan, device):
     """A plan (``SchurPlan`` or ``DenseLmSchurPlan``, numpy or tensor
     leaves) with int64 tensor leaves on ``device``."""
+    if type(plan) is tuple:
+        return tuple(plan_to(x, device) for x in plan)
     if isinstance(plan, tuple):
         return type(plan)(*(plan_to(x, device) for x in plan))
     return torch.as_tensor(plan, device=device).long()
@@ -105,17 +108,25 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
     return problem._replace(obs=obs2), plan_to(plan, dev)
 
 
+def tree_sum(values: torch.Tensor, tree: SegmentTree) -> torch.Tensor:
+    """values (N, ...) summed into the output rows of ``tree`` (R, ...) in
+    the tree's fixed order: gathers and sums over a chunk axis, no
+    scatter-add, so the result repeats bit for bit on the card."""
+    zero = values.new_zeros((1,) + tuple(values.shape[1:]))
+    for g in tree.levels:
+        values = torch.cat([values, zero])[g].sum(dim=1)
+    return torch.cat([values, zero])[tree.pick]
+
+
 def _chunk_sum(payload: torch.Tensor, plan: ChunkPlan, n_rows: int):
     """payload (N+1, D) with zero last row -> (n_rows, D).
 
     ``plan.gidx`` (NC, B) gathers payload rows that are summed per chunk;
-    ``plan.rows`` (NC,) scatters each chunk sum to its output row (row
-    ``n_rows`` is the dropped dummy).  Both are int64 tensors on the
+    ``plan.seg`` sums each chunk to its output row (``plan.rows``; row
+    ``n_rows`` is the dropped dummy).  All are int64 tensors on the
     payload's device."""
     partial = payload[plan.gidx].sum(dim=1)                   # (NC, D)
-    out = torch.zeros((n_rows + 1, payload.shape[1]), dtype=payload.dtype,
-                      device=payload.device)
-    return out.index_add_(0, plan.rows, partial)[:n_rows]
+    return tree_sum(partial, plan.seg)
 
 
 def _one_hot(idx, K: int, dtype):
@@ -123,21 +134,18 @@ def _one_hot(idx, K: int, dtype):
     return torch.nn.functional.one_hot(idx, K + 1)[..., :K].to(dtype)
 
 
-def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_rows4, K: int,
-                   C: int):
+def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,
+                   K: int, C: int):
     """H_cc (K*C, K*C) from camera-pair Gram chunks: the 2C x 2C Gram of
-    each chunk's rows holds [Haa Hac; Hca Hcc] of its camera pair."""
+    each chunk's rows holds [Haa Hac; Hca Hcc] of its camera pair, summed
+    into the K*K blocks by ``cc_seg`` (the plan's ``cc_rows4``)."""
     rows = J[pg]                                   # (NCp, Bp, R, 2C+1)
     rows2 = rows[..., : 2 * C].reshape(rows.shape[0], -1, 2 * C)
     G2 = torch.bmm(rows2.transpose(1, 2), rows2)   # (NCp, 2C, 2C)
     blocks = torch.stack(
         [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
     ).reshape(-1, C * C)
-    H_cc = (
-        torch.zeros((K * K + 1, C * C), dtype=J.dtype, device=J.device)
-        .index_add_(0, cc_rows4.reshape(-1), blocks)[: K * K]
-        .reshape(K, K, C, C)
-    )
+    H_cc = tree_sum(blocks, cc_seg).reshape(K, K, C, C)
     return H_cc.permute(0, 2, 1, 3).reshape(K * C, K * C)
 
 
@@ -256,7 +264,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         L = problem.inv_depth.shape[0]
         cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
         dtype = Jsw.dtype
-        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_rows4, K, C)
+        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_seg, K, C)
 
         # thin couplings A[o] = Jsw[o]^T [swJp, swr]: (O', 2C+1, 2)
         right = torch.stack([Jsw[:, :, 2 * C], rsw], dim=-1)
@@ -277,8 +285,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         oh = _one_hot(plan.lm_cam, K, dtype)                  # (NC, B, K)
         rows_t = A[:, C:2 * C, 0][plan.lm.gidx]                # (NC, B, C)
         part = torch.bmm(oh.transpose(1, 2), rows_t)          # (NC, K, C)
-        M = (torch.zeros((L + 1, K * C), dtype=dtype, device=Jsw.device)
-             .index_add_(0, plan.lm.rows, part.reshape(-1, K * C))[:L])
+        M = tree_sum(part.reshape(-1, K * C), plan.lm.seg)
         oh_a = _one_hot(plan.anchor_cam_of_lm, K, dtype)      # (L, K)
         M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
 
@@ -289,14 +296,15 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
                     cfg: ba.BAConfig):
         """Normal-equation assembly for the slot-major layout of
         ``densify_problem``: landmark reductions are reshapes to (S, L, .)
-        and sums over the slot axis; g_c and M are index-adds by camera
-        (padding rows carry camera K, which lands in a dropped row)."""
+        and sums over the slot axis; g_c and M are fixed-order sums by
+        camera (``plan.gc_seg``, ``plan.m_seg``; padding rows carry camera
+        K, which is dropped)."""
         K = problem.cam_states[0].shape[0]
         L = problem.inv_depth.shape[0]
         S_ = plan.lm_cam.shape[0]
         cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
-        dtype, dev = Jsw.dtype, Jsw.device
-        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_rows4, K, C)
+        dtype = Jsw.dtype
+        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_seg, K, C)
 
         # thin couplings A0 = J^T J_rho, A1 = J^T r: (O', 2C+1) each
         A0 = torch.einsum("orw,or->ow", Jsw, Jsw[:, :, 2 * C])
@@ -307,18 +315,12 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         g_p = A1[: S_ * L, 2 * C].reshape(S_, L).sum(0)
 
         Av = A1[: S_ * L]
-        g_c = (torch.zeros((K + 1, C), dtype=dtype, device=dev)
-               .index_add_(0, plan.obs_anchor_cam, Av[:, :C])
-               .index_add_(0, plan.obs_target_cam, Av[:, C:2 * C])[:K])
+        g_c = tree_sum(torch.cat([Av[:, :C], Av[:, C:2 * C]]), plan.gc_seg)
 
         inv0 = problem.lm_valid.to(dtype) / torch.clamp(
             H_pp, min=cfg.min_inv_depth_hessian)
-        lm_base = torch.arange(L, device=dev) * (K + 1)
-        M = (torch.zeros((L * (K + 1), C), dtype=dtype, device=dev)
-             .index_add_(0, (lm_base + plan.lm_cam).reshape(-1),
-                         A0s[:, :, C:2 * C].reshape(-1, C))
-             .index_add_(0, lm_base + plan.anchor_cam_of_lm, anchor_v))
-        M = M.reshape(L, K + 1, C)[:, :K].reshape(L, K * C)
+        M = tree_sum(torch.cat([A0s[:, :, C:2 * C].reshape(-1, C), anchor_v]),
+                     plan.m_seg).reshape(L, K * C)
 
         S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p)
         return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)

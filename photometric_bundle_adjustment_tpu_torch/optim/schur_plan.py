@@ -10,8 +10,13 @@ gather plans*: because the observation graph is fixed for the duration of a
 solve, every sparse reduction can be phrased as
 
     gather payload rows by a precomputed index matrix -> dense partial sums
-    over chunks -> one tiny scatter over the number of CHUNKS (thousands)
+    over chunks -> one small sum over the number of CHUNKS (thousands)
     instead of observations (hundreds of thousands).
+
+In the port that last sum is not a scatter-add either: a CUDA scatter-add
+accumulates with atomics, in an order that changes from run to run.  Each
+plan carries a ``SegmentTree`` per reduction, gathers and chunk sums in an
+order fixed on the host, so a build repeats bit for bit.
 
 Plans are plain arrays (a pytree), passed to the jitted solver as arguments;
 their shapes are bucketed (rounded up) so growing problems re-use compiled
@@ -42,13 +47,45 @@ from typing import NamedTuple
 import numpy as np
 
 
+class SegmentTree(NamedTuple):
+    """A sum of value rows into output rows in a fixed order, without a
+    scatter: each level gathers rows of the previous level's values (index
+    N_prev = an appended zero row) in chunks of B and sums each chunk; then
+    ``pick`` gathers each output row from the last level (its zero row where
+    nothing lands).  Every chunk of a level touches one output row, so the
+    levels end once no output row has two values left."""
+
+    levels: tuple     # of (NC_i, B) int64 into the previous level's rows
+    pick: np.ndarray  # (R,) int64 into the last level's rows; N_last = zero
+
+
+def build_segment_tree(ids, n_out: int, B: int = 16) -> SegmentTree:
+    """The ``SegmentTree`` that sums value row i into output row ``ids[i]``;
+    ids outside [0, n_out) are dropped.  Values are summed in index order
+    within a chunk and chunks in the order ``_chunk_segments`` gives."""
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    pos = np.flatnonzero((ids >= 0) & (ids < n_out))
+    rid = ids[pos]
+    n_prev = ids.size
+    levels = []
+    while rid.size and np.unique(rid).size < rid.size:
+        g, r = _chunk_segments(rid, B)
+        levels.append(np.where(g >= 0, pos[np.clip(g, 0, None)], n_prev))
+        n_prev, pos, rid = r.size, np.arange(r.size), r
+    pick = np.full(n_out, n_prev, np.int64)
+    pick[rid] = pos
+    return SegmentTree(levels=tuple(levels), pick=pick)
+
+
 class ChunkPlan(NamedTuple):
     """Chunked segment-sum: payload rows gathered by ``gidx`` are summed per
-    chunk and scatter-added at ``rows``.  Dummy gathers point at the payload's
-    trailing zero row; dummy chunks scatter into a dropped trailing row."""
+    chunk and the chunk sums added at ``rows``, in the fixed order of
+    ``seg``.  Dummy gathers point at the payload's trailing zero row; dummy
+    chunks go to a dropped trailing row."""
 
     gidx: np.ndarray  # (NC, B) int32 into payload rows [0, N]; N = zero row
     rows: np.ndarray  # (NC,) int32 into output rows [0, R]; R = dropped row
+    seg: SegmentTree  # the sum of the chunk sums into rows [0, R)
 
 
 class SchurPlan(NamedTuple):
@@ -69,6 +106,7 @@ class SchurPlan(NamedTuple):
     #                              (one_hot(K, K) == 0 masks them out)
     anchor_cam_of_lm: np.ndarray  # (L,) int32 anchor camera per landmark;
     #                               K for landmarks with no valid obs
+    cc_seg: SegmentTree   # the pair-chunk blocks into the K*K rows
 
 
 class DenseLmSchurPlan(NamedTuple):
@@ -97,6 +135,9 @@ class DenseLmSchurPlan(NamedTuple):
     obs_target_cam: np.ndarray  # (L*S,) int32 target cam per row; K if pad
     lm_cam: np.ndarray    # (S, L) int32 target cam per slot; K for padding
     anchor_cam_of_lm: np.ndarray  # (L,) int32; K for landmarks with no obs
+    cc_seg: SegmentTree   # the pair-chunk blocks into the K*K rows
+    gc_seg: SegmentTree   # rows [anchor part; target part] into K cameras
+    m_seg: SegmentTree    # S slots + the anchor per landmark into L*K rows
 
 
 def _round_up(n: int, minimum: int, pow2: bool = True) -> int:
@@ -153,7 +194,8 @@ def _build_chunk_plan(ids, B, dummy_payload, dummy_row, nc_bucket=256,
     g[:NC] = np.where(gidx >= 0, gidx, dummy_payload)
     r = np.full(NCb, dummy_row, np.int64)
     r[:NC] = rows
-    return ChunkPlan(g.astype(np.int32), r.astype(np.int32))
+    return ChunkPlan(g.astype(np.int32), r.astype(np.int32),
+                     build_segment_tree(r, dummy_row))
 
 
 def build_schur_plan(
@@ -209,7 +251,8 @@ def build_schur_plan(
     lg[:NC2] = g2
     lr = np.full(NC2b, L, np.int64)
     lr[:NC2] = r2
-    lm_plan = ChunkPlan(lg.astype(np.int32), lr.astype(np.int32))
+    lm_plan = ChunkPlan(lg.astype(np.int32), lr.astype(np.int32),
+                        build_segment_tree(lr, L))
 
     # ---- camera chunks for g_c: anchor rows and target rows separately ---
     def cam_chunk_plan(cam_ids):
@@ -221,7 +264,8 @@ def build_schur_plan(
         gg[:NC3] = g3
         gr = np.full(NC3b, K, np.int64)
         gr[:NC3] = r3
-        return ChunkPlan(gg.astype(np.int32), gr.astype(np.int32))
+        return ChunkPlan(gg.astype(np.int32), gr.astype(np.int32),
+                         build_segment_tree(gr, K))
 
     gc_a_plan = cam_chunk_plan(an[vidx])
     gc_t_plan = cam_chunk_plan(tn[vidx])
@@ -244,7 +288,19 @@ def build_schur_plan(
         gc_t=gc_t_plan,
         lm_cam=lm_cam.astype(np.int32),
         anchor_cam_of_lm=anchor_cam_of_lm.astype(np.int32),
+        cc_seg=build_segment_tree(cc_rows4, K * K),
     )
+
+
+def lift_segment_tree(lm_cam, anchor_cam_of_lm, K: int) -> SegmentTree:
+    """The ``SegmentTree`` of the dense camera lift: value row s*L + l
+    (slot s of landmark l, s = S for its anchor) into output row l*K + k of
+    its camera k; camera K (padding, no anchor) is dropped."""
+    cams = np.concatenate([np.asarray(lm_cam, np.int64),
+                           np.asarray(anchor_cam_of_lm, np.int64)[None]], 0)
+    L = cams.shape[1]
+    ids = np.where(cams < K, np.arange(L) * K + cams, -1)
+    return build_segment_tree(ids, L * K)
 
 
 def build_dense_lm_plan(
@@ -333,5 +389,9 @@ def build_dense_lm_plan(
         obs_target_cam=obs_target_cam.astype(np.int32),
         lm_cam=lm_cam.astype(np.int32),
         anchor_cam_of_lm=anchor_cam_of_lm.astype(np.int32),
+        cc_seg=build_segment_tree(cc_rows4, K * K),
+        gc_seg=build_segment_tree(
+            np.concatenate([obs_anchor_cam, obs_target_cam]), K),
+        m_seg=lift_segment_tree(lm_cam, anchor_cam_of_lm, K),
     )
     return perm, plan

@@ -146,7 +146,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
         _sync(device)
         t_setup = time.perf_counter()
         solve = pba_mega.make_mega_solver(
-            model, flat_l, H_l, W_l, prob_l, imgs_l.shape[0], device=device
+            model, flat_l, H_l, W_l, prob_l, device=device
         )
         _sync(device)
         t_solve = time.perf_counter()

@@ -10,7 +10,7 @@ relative-pose RANSAC, tracks and the map stages come with later slices.
 
 The stages run on ``device`` (the card unless the caller asks for the
 CPU).  Descriptor matching goes through the Hamming kernel there: one
-launch per direction for all stereo pairs.  Feature dicts and match lists
+launch gives both directions of all stereo pairs.  Feature dicts and match lists
 have the JAX package's layout; descriptors in ``corners`` are uint32, as
 there.  The counters keep the JAX package's names but count what runs
 here: ``stereo_chunks`` is 1 per ``match_stereo``, since every stereo

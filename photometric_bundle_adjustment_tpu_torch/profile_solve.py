@@ -15,10 +15,12 @@ workload of the JAX package's ``bench.py`` ``pba_lm``).  ``--bf16`` runs
 the kernel's bf16 tier.  It warms up and then, at the initial state:
 
   * times each piece of a try, mean of ``--reps`` calls (CUDA events on a
-    GPU, the host clock on the CPU): the whole build (``warp_slabs``, the
-    megakernel and the family's assembly), ``warp_slabs`` alone, the
-    megakernel alone, the assembly (the build less the two) and the damped
-    solve (``solve_lam`` or ``solve_lam2``);
+    GPU, the host clock on the CPU): the whole build (the megakernel, which
+    computes the warp inside it, and the family's assembly), the megakernel
+    alone, the assembly (the build less the kernel) and the damped solve
+    (``solve_lam`` or ``solve_lam2``); for the chunk family also the
+    fixed-order sums of its plan against the scatter-adds they replace
+    (``fixed_order_sums``);
   * runs ``--tries`` LM tries (damped solve, retraction, build at the trial
     point, host sync of the trial cost, as ``make_mega_solver``'s loop does)
     under ``torch.profiler`` and reports the wall time, the device busy time
@@ -33,9 +35,9 @@ observations, seed 0: the workload of the JAX package's
 power-of-two buckets:
 
   * ``fused``: ``make_fused_solver`` (gather sampling, chunk build);
-  * ``kernel_fused``: ``make_kernel_fused_solver`` on the
-    ``imagesort_problem`` order (patch kernel, chunk build), the
-    counterpart of ``profile_pba.py:main_kernel``;
+  * ``kernel_fused``: ``make_kernel_fused_solver`` on the problem's own
+    rows (patch kernel, chunk build), the counterpart of
+    ``profile_pba.py:main_kernel``;
   * ``kernel_dense``: ``make_kernel_dense_solver`` on ``densify_problem``
     (patch kernel, slot-major dense build), the counterpart of
     ``scripts/profile_pba_dense.py``.
@@ -190,6 +192,30 @@ def profile_tries(solve, problem, cfg: ba.BAConfig, tries: int,
     return dict(tries=tries, **res)
 
 
+def fixed_order_sums(plan, K: int, L: int, device: torch.device,
+                     ms) -> dict:
+    """What the fixed-order sums of a chunk-family build cost: the sums of
+    its plan (the pair-chunk blocks into K*K, the landmark chunks at the
+    widths C+2 and K*C, the two camera chunks at C) on random values of
+    the build's shapes, through ``fused.tree_sum``
+    (``fixed_sums_ms``) and through ``index_add_``, the scatter-add they
+    replace (``scatter_sums_ms``), each the sum of its calls' ``ms``."""
+    C = 8
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [(plan.cc_seg, plan.cc_rows4.reshape(-1), K * K, C * C),
+             (plan.lm.seg, plan.lm.rows, L, C + 2),
+             (plan.lm.seg, plan.lm.rows, L, K * C),
+             (plan.gc_a.seg, plan.gc_a.rows, K, C),
+             (plan.gc_t.seg, plan.gc_t.rows, K, C)]
+    fixed = scatter = 0.0
+    for tree, rows, n, width in cases:
+        vals = torch.randn((rows.shape[0], width), generator=gen).to(device)
+        fixed += ms(lambda: fused.tree_sum(vals, tree))
+        scatter += ms(lambda: torch.zeros((n + 1, width), device=device)
+                      .index_add_(0, rows, vals)[:n])
+    return dict(fixed_sums_ms=fixed, scatter_sums_ms=scatter)
+
+
 FUSED_SOLVERS = ("fused", "kernel_fused", "kernel_dense")
 
 
@@ -198,18 +224,16 @@ def fused_case(solver: str, problem: ba.BAProblem, images_flat, H: int,
     """``(solve, problem2, plan)``: the solver of ``--solver`` on the
     problem in the order and with the plan it takes (chunk plans without
     power-of-two buckets)."""
-    K = problem.cam_states.pose.shape[0]
     if solver == "fused":
         return (pba.make_fused_solver("pinhole", images_flat, H, W,
                                       device=device), problem,
                 fused.plan_for_problem(problem, pow2_buckets=False))
     if solver == "kernel_fused":
-        p2, iog, cnt = pba.imagesort_problem(problem, K)
         return (pba.make_kernel_fused_solver("pinhole", images_flat, H, W,
-                                             iog, cnt, device=device), p2,
-                fused.plan_for_problem(p2, pow2_buckets=False))
+                                             problem, device=device), problem,
+                fused.plan_for_problem(problem, pow2_buckets=False))
     p2, plan = fused.densify_problem(problem, pow2_buckets=False)
-    return (pba.make_kernel_dense_solver("pinhole", images_flat, H, W, p2, K,
+    return (pba.make_kernel_dense_solver("pinhole", images_flat, H, W, p2,
                                          device=device), p2, plan)
 
 
@@ -336,7 +360,7 @@ def main(argv=None) -> dict:
             pba_refine.build_photometric_problem(pipe, device=device)
         plan_slot = None
     K = problem.cam_states.pose.shape[0]
-    solve = pba_mega.make_mega_solver(model, images_flat, H, W, problem, K,
+    solve = pba_mega.make_mega_solver(model, images_flat, H, W, problem,
                                       plan_slot, device=device)
     cfg = ba.BAConfig(huber_delta=9.0, sample_bf16=args.bf16)
     consts = solve.consts
@@ -345,21 +369,18 @@ def main(argv=None) -> dict:
     def ms(fn):
         return time_ms(fn, device, args.reps)
 
-    ux, uy, _, GA, GB = pba_mega.warp_slabs(
-        model, problem.cam_states, problem.inv_depth, consts)
-    aff = pba_mega.affine_slab(problem.cam_states.affine, consts)
     _, neq = solve.build(problem, cfg)
     free = ~problem.fixed_cams
     phases = dict(
         build_ms=ms(lambda: solve.build(problem, cfg)),
-        warp_slabs_ms=ms(lambda: pba_mega.warp_slabs(
-            model, problem.cam_states, problem.inv_depth, consts)),
-        megakernel_ms=ms(lambda: pba_mega.mega_rj(
-            images, ux, uy, GA, GB, consts.refp, aff, consts.iog,
-            consts.cnt, cfg.huber_delta)),
+        megakernel_ms=ms(lambda: pba_mega.mega_fused(
+            model, images, problem.cam_states, problem.inv_depth, consts,
+            cfg.huber_delta)),
     )
-    phases["assembly_ms"] = (phases["build_ms"] - phases["warp_slabs_ms"]
-                             - phases["megakernel_ms"])
+    phases["assembly_ms"] = phases["build_ms"] - phases["megakernel_ms"]
+    if plan_slot is None:
+        phases.update(fixed_order_sums(solve.plan, K, problem.inv_depth.shape[0],
+                                       device, ms))
     phases["solve_lam_ms"] = ms(lambda: solve.solve_lam(
         neq, float(cfg.init_lambda), free, cfg))
     prof = profile_tries(solve, problem, cfg, args.tries, device)
@@ -367,7 +388,8 @@ def main(argv=None) -> dict:
         device=torch.cuda.get_device_name(device) if gpu else "cpu",
         solver="mega", family=args.family, bf16=args.bf16, K=K,
         L=int(problem.inv_depth.shape[0]),
-        observations=int(consts.cnt.sum()), Og=int(ux.shape[1]),
+        observations=int((consts.timg >= 0).sum()),
+        columns=int(consts.cols.shape[1]),
         H=H, W=W, reps=args.reps, **phases, **prof,
         peak_device_mib=(torch.cuda.max_memory_allocated(device) / 2**20
                          if gpu else None),

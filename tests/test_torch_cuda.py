@@ -1,11 +1,11 @@
 """The port's CUDA kernels on the card: built from csrc/, held against
 their plain PyTorch versions, and their wrappers' guards; the front end
-and the kernel-sampled photometric solvers on the card against the CPU
-plain path.  Marked ``cuda``; each test skips where no CUDA device is
-present.  The megakernel (both tiers) and the patch sampler contract
-a*b + c into FMAs and the plain versions do not, so they agree to about
-one ulp per operation: atol 1e-4 * max|ref| (per row block for the
-megakernel).  The Hamming kernel is integer arithmetic and the window
+and the photometric solvers on the card against the CPU plain path, and
+builds that repeat bit for bit.  Marked ``cuda``; each test skips where no
+CUDA device is present.  The megakernel (every camera model, both tiers,
+both thread mappings) and the patch sampler contract a*b + c into FMAs
+and the plain versions do not, so they agree to about one ulp per
+operation: atol 1e-4 * max|ref| (per row block for the megakernel).  The Hamming kernel is integer arithmetic and the window
 read a copy: both must be bit-identical.  The grid probe's output must be
 exactly zero and its checksums agree within rtol 1e-5 (the order of the
 sums differs).
@@ -38,7 +38,12 @@ from photometric_bundle_adjustment_tpu_torch.scripts import grid_overhead as go
 
 pytestmark = pytest.mark.cuda
 
-P, GROUP = pba_mega.P, pba_mega.GROUP
+# the reference's test intrinsics' distortion terms (camera_models.h),
+# put on the toy problem's own focal lengths and centre
+DISTORTION = {"pinhole": [0.0, 0.0, 0.0, 0.0],
+              "eucm": [0.51231234, 0.9, 0.0, 0.0],
+              "ds": [0.5 * -0.150694, 0.5 * 1.48785, 0.0, 0.0],
+              "kb4": [0.00693023, -0.0013828, -0.000272596, -0.000452646]}
 
 
 @pytest.fixture
@@ -48,27 +53,29 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(device, H=64, W=96, Kimg=3, counts=(256, 130, 7), seed=0):
-    gen = torch.Generator().manual_seed(seed)
-    ng = len(counts)
-    Og = ng * GROUP
-
-    def rand(*shape, lo=0.0, hi=1.0):
-        return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(device)
-
-    images = rand(Kimg, H, W, hi=255.0)
-    ux = rand(P, Og, lo=-5.0, hi=W + 4.0)
-    uy = rand(P, Og, lo=-5.0, hi=H + 4.0)
-    ux[:, 11] = -1e6                         # a non-finite projection
-    uy[:, 11] = -1e6
-    GA = torch.randn((13 * P, Og), generator=gen).to(device)
-    GB = torch.randn((13 * P, Og), generator=gen).to(device)
-    refp = rand(P, Og, hi=255.0)
-    aff = (0.1 * torch.randn((4, Og), generator=gen)).to(device)
-    iog = torch.tensor([i % Kimg for i in range(ng)], dtype=torch.int32,
-                       device=device)
-    cnt = torch.tensor(counts, dtype=torch.int32, device=device)
-    return images, ux, uy, GA, GB, refp, aff, iog, cnt
+def _mega_inputs(device, model="pinhole", seed=0):
+    """A toy problem in ``model`` on ``device``, its state pushed so that
+    some observations leave the image (camera 5 shifted by 1.5), some lie
+    behind the camera (landmark 7 at a negative inverse depth) and some
+    are not finite (landmark 11 at an infinite one), and the kernel's
+    columns of it (valid observations sorted by image, one zero column).
+    Returns (images, cams, rho, consts)."""
+    problem, images, H, W = synthetic.euroc_scale_pba(
+        K=12, L=96, obs_per_lm=3, H=64, W=96, seed=seed, device=device)
+    aux = problem.obs.aux
+    intr = aux.intr_ref.clone()
+    intr[:, 4:] = torch.tensor(DISTORTION[model], device=device)
+    problem = problem._replace(obs=problem.obs._replace(
+        aux=aux._replace(intr_ref=intr, intr_target=intr.clone())))
+    _, rows = pba_mega.build_chunk_mega_plan(problem)
+    consts = pba_mega.make_mega_consts(model, problem, rows)
+    pose = problem.cam_states.pose.clone()
+    pose[5, 0] += 1.5
+    rho = problem.inv_depth.clone()
+    rho[7] = -rho[7].abs()
+    rho[11] = float("inf")
+    cams = problem.cam_states._replace(pose=pose)
+    return images.reshape(-1, H, W).contiguous(), cams, rho, consts
 
 
 def _assert_matches(out, ref):
@@ -81,61 +88,118 @@ def _assert_matches(out, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("width", [96, 8448])
-def test_kernel_matches_plain_version(cuda, width):
-    args = _inputs(cuda, W=width)
-    before = pba_mega.KERNEL_LAUNCHES
-    out = pba_mega.mega_rj(*args, 9.0)
-    torch.cuda.synchronize()
-    assert pba_mega.KERNEL_LAUNCHES == before + 1
-    ref = pba_mega.mega_rj_reference(*args, 9.0)
-    _assert_matches(out, ref)
-    cnt = args[-1].long().repeat_interleave(GROUP)
-    pad = (torch.arange(out.shape[1], device=cuda) % GROUP) >= cnt
-    assert (out[:, pad] == 0).all()
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("model", pba_mega.MODELS)
+def test_fused_kernel_matches_plain_version(cuda, model, bf16):
+    """Both thread mappings against ``mega_fused_reference`` on the same
+    inputs (the bf16 tier against the plain version on the widened
+    stack), with off-image, behind-camera and non-finite observations and
+    a zero column; each launch counted in its tier's counter."""
+    images, cams, rho, consts = _mega_inputs(cuda, model)
+    if bf16:
+        images = images.to(torch.bfloat16)
+    ref = pba_mega.mega_fused_reference(model, images.float(), cams, rho,
+                                        consts, 9.0)
+    nan = torch.isnan(ref[pba_mega.ROW_COST])
+    assert 0 < int(nan.sum()) < nan.numel() // 2
+    for per_point in (True, False):
+        before = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
+        out = pba_mega.mega_fused(model, images, cams, rho, consts, 9.0,
+                                  per_point=per_point)
+        torch.cuda.synchronize()
+        after = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
+        assert after == ((before[0], before[1] + 1) if bf16
+                         else (before[0] + 1, before[1]))
+        _assert_matches(out, ref)
+        assert (out[:, consts.timg < 0] == 0).all()
+    if bf16:
+        # the tier is on: rounding the stack moves the payload
+        out32 = pba_mega.mega_fused(model, images.float(), cams, rho, consts,
+                                    9.0)
+        assert not torch.equal(out, out32)
 
 
-@pytest.mark.parametrize("width", [96, 8448])
-def test_bf16_kernel_matches_plain_version(cuda, width):
-    images, *rest = _inputs(cuda, W=width, seed=5)
-    bf = images.to(torch.bfloat16)
-    before = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
-    out = pba_mega.mega_rj(bf, *rest, 9.0)
-    torch.cuda.synchronize()
-    assert (pba_mega.KERNEL_LAUNCHES,
-            pba_mega.KERNEL_LAUNCHES_BF16) == (before[0], before[1] + 1)
-    _assert_matches(out, pba_mega.mega_rj_reference(bf.float(), *rest, 9.0))
-    # the tier is on: rounding the stack moves the payload
-    assert not torch.equal(out, pba_mega.mega_rj(images, *rest, 9.0))
+def test_fused_kernel_wide_image(cuda):
+    """W=8448, wider than the TPU kernel's 14-bit column field, through
+    the pinhole toy state: both mappings against the plain version."""
+    images, cams, rho, consts, _ = synthetic.wide_image_state(device=cuda)
+    ref = pba_mega.mega_fused_reference("pinhole", images, cams, rho, consts,
+                                        0.0)
+    for per_point in (True, False):
+        out = pba_mega.mega_fused("pinhole", images, cams, rho, consts, 0.0,
+                                  per_point=per_point)
+        _assert_matches(out, ref)
+        assert (out[:, consts.timg < 0] == 0).all()
 
 
-def test_kernel_squared_loss(cuda):
-    args = _inputs(cuda, seed=3)
-    _assert_matches(pba_mega.mega_rj(*args, 0.0),
-                    pba_mega.mega_rj_reference(*args, 0.0))
+def test_fused_kernel_squared_loss(cuda):
+    images, cams, rho, consts = _mega_inputs(cuda, "ds", seed=3)
+    _assert_matches(
+        pba_mega.mega_fused("ds", images, cams, rho, consts, 0.0),
+        pba_mega.mega_fused_reference("ds", images, cams, rho, consts, 0.0))
 
 
-def test_wrapper_rejects_bad_inputs(cuda):
-    images, ux, uy, GA, GB, refp, aff, iog, cnt = _inputs(cuda)
+def test_fused_wrapper_rejects_bad_inputs(cuda):
+    images, cams, rho, consts = _mega_inputs(cuda)
+    with pytest.raises(ValueError, match="camera model"):
+        pba_mega.mega_fused("fisheye", images, cams, rho, consts, 9.0)
     with pytest.raises(ValueError, match="float32"):
-        pba_mega.mega_rj(images, ux.double(), uy, GA, GB, refp, aff, iog,
-                         cnt, 9.0)
+        pba_mega.mega_fused("pinhole", images, cams, rho.double(), consts,
+                            9.0)
     with pytest.raises(ValueError, match="contiguous"):
-        pba_mega.mega_rj(images, ux, uy, GA.T.contiguous().T, GB, refp, aff,
-                         iog, cnt, 9.0)
-    with pytest.raises(ValueError, match="multiple"):
-        pba_mega.mega_rj(images, ux[:, :100], uy[:, :100], GA, GB, refp, aff,
-                         iog, cnt, 9.0)
+        pba_mega.mega_fused("pinhole", images, cams, rho, consts._replace(
+            d3=consts.d3.T.contiguous().T), 9.0)
+    with pytest.raises(ValueError, match="must be"):
+        pba_mega.mega_fused("pinhole", images, cams, rho, consts._replace(
+            refp=consts.refp[:, :-1].contiguous()), 9.0)
     with pytest.raises(ValueError, match="is on cpu"):
-        pba_mega.mega_rj(images, ux, uy, GA, GB, refp, aff, iog.cpu(), cnt,
-                         9.0)
-    # bf16 is taken for the image stack only
-    with pytest.raises(ValueError, match="float32"):
-        pba_mega.mega_rj(images.to(torch.bfloat16), ux.to(torch.bfloat16),
-                         uy, GA, GB, refp, aff, iog, cnt, 9.0)
+        pba_mega.mega_fused("pinhole", images, cams, rho, consts._replace(
+            cols=consts.cols.cpu()), 9.0)
+    with pytest.raises(ValueError, match="int32"):
+        pba_mega.mega_fused("pinhole", images, cams, rho, consts._replace(
+            cols=consts.cols.long()), 9.0)
     with pytest.raises(ValueError, match="bfloat16"):
-        pba_mega.mega_rj(images.half(), ux, uy, GA, GB, refp, aff, iog, cnt,
-                         9.0)
+        pba_mega.mega_fused("pinhole", images.half(), cams, rho, consts, 9.0)
+
+
+def _family_solvers(device):
+    """The four solvers whose builds must repeat bit for bit, each with a
+    build function of no argument, on ``euroc_scale_pba`` at toy size."""
+    problem, images, H, W = synthetic.euroc_scale_pba(
+        K=12, L=96, obs_per_lm=3, H=64, W=96, device=device)
+    prob_d, plan_d = fused.densify_problem(problem)
+    cfg = ba.BAConfig(huber_delta=9.0)
+    chunk = pba_mega.make_mega_solver("pinhole", images, H, W, problem,
+                                      device=device)
+    dense = pba_mega.make_mega_solver("pinhole", images, H, W, prob_d, plan_d,
+                                      device=device)
+    kf = pba.make_kernel_fused_solver("pinhole", images, H, W, problem,
+                                      device=device)
+    kd = pba.make_kernel_dense_solver("pinhole", images, H, W, prob_d,
+                                      device=device)
+    plan = fused.plan_for_problem(problem)
+    return {
+        "mega_chunk": lambda: chunk.build(problem, cfg),
+        "mega_dense": lambda: dense.build(prob_d, cfg),
+        "mega_dense_bf16": lambda: dense.build(
+            prob_d, cfg._replace(sample_bf16=True)),
+        "kernel_fused": lambda: kf.build(problem, plan, cfg),
+        "kernel_dense": lambda: kd.build(prob_d, plan_d, cfg),
+    }
+
+
+@pytest.mark.parametrize("solver", ["mega_chunk", "mega_dense",
+                                    "mega_dense_bf16", "kernel_fused",
+                                    "kernel_dense"])
+def test_builds_repeat_bit_for_bit(cuda, solver):
+    """Two builds of the same input on the card are bit-equal: every sum of
+    the assembly runs in an order fixed on the host, no scatter-add."""
+    build = _family_solvers(cuda)[solver]
+    c1, neq1 = build()
+    c2, neq2 = build()
+    assert torch.equal(c1, c2)
+    for a, b in zip(neq1, neq2):
+        assert torch.equal(a, b)
 
 
 def test_refine_on_card_matches_cpu(cuda):
@@ -298,29 +362,27 @@ def test_front_end_on_card_matches_cpu(cuda):
     assert (tables[0] >= 0).sum() > 0
 
 
-def _sampler_inputs(device, H=64, W=96, Kimg=3, counts=(128, 70, 5), seed=0):
+def _sampler_inputs(device, H=64, W=96, Kimg=3, O=203, seed=0):
     gen = torch.Generator().manual_seed(seed)
-    Opad = len(counts) * ps.GROUP
 
     def rand(*shape, lo=0.0, hi=1.0):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(device)
 
     images = rand(Kimg, H, W, hi=255.0)
-    ux = rand(ps.P, Opad, lo=-5.0, hi=W + 4.0)
-    uy = rand(ps.P, Opad, lo=-5.0, hi=H + 4.0)
+    ux = rand(ps.P, O, lo=-5.0, hi=W + 4.0)
+    uy = rand(ps.P, O, lo=-5.0, hi=H + 4.0)
     ux[:, 11] = -1e6                         # a non-finite projection
     uy[:, 11] = -1e6
-    iog = torch.tensor([i % Kimg for i in range(len(counts))],
-                       dtype=torch.int32, device=device)
-    cnt = torch.tensor(counts, dtype=torch.int32, device=device)
-    return images, ux, uy, iog, cnt, (H, W)
+    img = torch.randint(0, Kimg, (O,), generator=gen, dtype=torch.int32)
+    img[::17] = -1                           # zero columns
+    return images, ux, uy, img.to(device), (H, W)
 
 
 @pytest.mark.parametrize("want_grads", [True, False])
 def test_patch_sample_kernel_matches_plain_version(cuda, want_grads):
     args = _sampler_inputs(cuda)
     before = ps.KERNEL_LAUNCHES
-    out = ps.sample_patches_grouped(*args, want_grads)
+    out = ps.sample_patches(*args, want_grads)
     torch.cuda.synchronize()
     assert ps.KERNEL_LAUNCHES == before + 1
     ref = ps.sample_patches_reference(*args, want_grads)
@@ -328,27 +390,26 @@ def test_patch_sample_kernel_matches_plain_version(cuda, want_grads):
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=1e-4 * scale)
-    cnt = args[4].long().repeat_interleave(ps.GROUP)
-    pad = (torch.arange(out[0].shape[1], device=cuda) % ps.GROUP) >= cnt
-    assert all(bool((a[:, pad] == 0).all()) for a in out)
+    zero = args[3] < 0
+    assert all(bool((a[:, zero] == 0).all()) for a in out)
     if not want_grads:
         assert not out[1].any() and not out[2].any()
 
 
 def test_patch_sample_wrapper_rejects_bad_inputs(cuda):
-    images, ux, uy, iog, cnt, HW = _sampler_inputs(cuda)
+    images, ux, uy, img, HW = _sampler_inputs(cuda)
     with pytest.raises(ValueError, match="float32"):
-        ps.sample_patches_grouped(images, ux.double(), uy, iog, cnt, HW)
+        ps.sample_patches(images, ux.double(), uy, img, HW)
     with pytest.raises(ValueError, match="contiguous"):
-        ps.sample_patches_grouped(images, ux.T.contiguous().T, uy, iog, cnt,
-                                  HW)
-    with pytest.raises(ValueError, match="multiple"):
-        ps.sample_patches_grouped(images, ux[:, :100], uy[:, :100], iog, cnt,
-                                  HW)
+        ps.sample_patches(images, ux.T.contiguous().T, uy, img, HW)
+    with pytest.raises(ValueError, match="must be"):
+        ps.sample_patches(images, ux[:, :100], uy[:, :100], img, HW)
     with pytest.raises(ValueError, match="is on cpu"):
-        ps.sample_patches_grouped(images, ux, uy, iog.cpu(), cnt, HW)
+        ps.sample_patches(images, ux, uy, img.cpu(), HW)
+    with pytest.raises(ValueError, match="int32"):
+        ps.sample_patches(images, ux, uy, img.long(), HW)
     with pytest.raises(ValueError, match="images3d must be"):
-        ps.sample_patches_grouped(images, ux, uy, iog, cnt, (32, 96))
+        ps.sample_patches(images, ux, uy, img, (32, 96))
 
 
 @pytest.mark.parametrize("solver", ["kernel_fused", "kernel_dense"])
@@ -361,18 +422,17 @@ def test_kernel_solvers_on_card_match_cpu(cuda, solver):
     cfg = ba.BAConfig(max_iterations=5, huber_delta=9.0,
                       cost_from_build=solver == "kernel_dense")
     if solver == "kernel_fused":
-        problem, iog, cnt = pba.imagesort_problem(problem, 12)
         plan = fused.plan_for_problem(problem)
     else:
         problem, plan = fused.densify_problem(problem)
     runs = []
     for dev in (cuda, "cpu"):
         if solver == "kernel_fused":
-            solve = pba.make_kernel_fused_solver("pinhole", images, H, W, iog,
-                                                 cnt, device=dev)
+            solve = pba.make_kernel_fused_solver("pinhole", images, H, W,
+                                                 problem, device=dev)
         else:
             solve = pba.make_kernel_dense_solver("pinhole", images, H, W,
-                                                 problem, 12, device=dev)
+                                                 problem, device=dev)
         before = ps.KERNEL_LAUNCHES
         p, res = solve(problem, plan, cfg)
         launches = ps.KERNEL_LAUNCHES - before

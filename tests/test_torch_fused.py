@@ -218,28 +218,42 @@ def test_solve_loops_match_jax(cases, jax_solves, cost_from_build):
         assert res.iterations <= res.builds <= res.iterations + 1
 
 
-def test_imagesort_problem_matches_jax(cases):
-    c = cases["f32"]
-    # drop image 3 entirely: it gets no group
-    keep = np.asarray(c.problem.obs.target_cam) != 3
-    jprob = c.problem._replace(obs=jax.tree_util.tree_map(
-        lambda x: x[keep], c.problem.obs))
-    tprob = c.tproblem._replace(obs=type(c.tproblem.obs)(*(
-        type(x)(*(y[torch.as_tensor(keep)] for y in x)) if isinstance(x, tuple)
-        else x[torch.as_tensor(keep)] for x in c.tproblem.obs)))
-    jp, jiog, jcnt = jpba.imagesort_problem(jprob, K)
-    tp, tiog, tcnt = tpba.imagesort_problem(tprob, K)
-    np.testing.assert_array_equal(tiog, jiog)
-    np.testing.assert_array_equal(tcnt, jcnt)
-    assert 3 not in tiog
-    for name in ("anchor_cam", "target_cam", "landmark", "valid"):
-        np.testing.assert_array_equal(_np(getattr(tp.obs, name)),
-                                      _np(getattr(jp.obs, name)),
-                                      err_msg=name)
-    for name in tp.obs.aux._fields:
-        np.testing.assert_array_equal(_np(getattr(tp.obs.aux, name)),
-                                      _np(getattr(jp.obs.aux, name)),
-                                      err_msg=name)
+def _tree_ids(kind, rng):
+    """(ids, n_out) of one contribution list: random rows, a heavy row
+    with hundreds of values (several levels), unique rows (no level),
+    nothing kept (every id dropped)."""
+    if kind == "random":
+        return rng.integers(-2, 40, 500), 37
+    if kind == "heavy":
+        return np.r_[np.zeros(700, int), rng.integers(0, 9, 60)], 9
+    if kind == "unique":
+        return rng.permutation(30), 30
+    return np.full(12, 5), 5
+
+
+@pytest.mark.parametrize("kind", ["random", "heavy", "unique", "dropped"])
+def test_segment_tree_sums_like_scatter_add(kind):
+    """``tree_sum`` over a host ``SegmentTree`` gives the scatter-add of
+    the values to their rows (ids outside [0, n_out) dropped), in a fixed
+    order: at f64 to rounding, and the same bits on every call."""
+    from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
+        build_segment_tree,
+    )
+
+    rng = np.random.default_rng(3)
+    ids, n_out = _tree_ids(kind, rng)
+    vals = rng.normal(size=(ids.size, 3))
+    tree = tfused.plan_to(build_segment_tree(ids, n_out, B=8), "cpu")
+    if kind == "heavy":
+        assert len(tree.levels) >= 3
+    if kind == "unique":
+        assert len(tree.levels) == 0
+    want = np.zeros((n_out + 1, 3))
+    np.add.at(want, np.where((ids >= 0) & (ids < n_out), ids, n_out), vals)
+    got = tfused.tree_sum(torch.as_tensor(vals), tree)
+    np.testing.assert_allclose(got.numpy(), want[:n_out], rtol=1e-12,
+                               atol=1e-12)
+    assert torch.equal(got, tfused.tree_sum(torch.as_tensor(vals), tree))
 
 
 @pytest.mark.parametrize("solver,case", [("kernel_fused", "f32"),
@@ -248,22 +262,22 @@ def test_imagesort_problem_matches_jax(cases):
 def test_kernel_solvers_match_jax_gather_solve(cases, jax_solves, solver,
                                                case):
     """The kernel-sampled solvers on the plain sampler against the JAX
-    package's gather solve: kernel_fused on the image-sorted problem with
-    its chunk plan (the JAX reference on the original order),
-    kernel_dense on the slot-major layout (the JAX reference on the same
-    layout); in pinhole, and kernel_fused in double sphere."""
+    package's gather solve: kernel_fused on the problem's own rows with
+    its chunk plan, kernel_dense on the slot-major layout (the JAX
+    reference on the same layouts); in pinhole, and kernel_fused in
+    double sphere."""
     c = cases[case]
     cfg = tba.BAConfig(max_iterations=5, huber_delta=HUBER)
     if solver == "kernel_fused":
-        tp, iog, gcnt = tpba.imagesort_problem(c.tproblem, K)
-        solve = tpba.make_kernel_fused_solver(c.model, c.timages, H, W,
-                                              iog, gcnt, device="cpu")
+        tp = c.tproblem
+        solve = tpba.make_kernel_fused_solver(c.model, c.timages, H, W, tp,
+                                              device="cpu")
         p, res = solve(tp, tfused.plan_for_problem(tp), cfg)
         p_ref, r_ref = jax_solves[case, "chunk", False]
     else:
         tp, tplan = tfused.densify_problem(c.tproblem)
         solve = tpba.make_kernel_dense_solver(c.model, c.timages, H, W, tp,
-                                              K, device="cpu")
+                                              device="cpu")
         p, res = solve(tp, tplan, cfg)
         p_ref, r_ref = jax_solves[case, "dense", False]
     np.testing.assert_allclose(float(res.cost), float(r_ref.cost), rtol=1e-4)

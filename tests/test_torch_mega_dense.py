@@ -4,7 +4,7 @@ package, on the same numpy-seeded problems.
 
 The JAX side runs its Pallas kernel in interpret mode on the CPU, as
 tests/test_pba_mega.py does; the port runs the kernel's plain PyTorch
-version, which is what ``mega_rj`` calls for CPU tensors.  The JAX f32
+version, which is what ``mega_fused`` calls for CPU tensors.  The JAX f32
 kernel samples through split-bf16 panels (about 2^-15 relative), so the
 normal equations are held to the ROADMAP's parity tolerances (cost rtol
 2e-4, pieces atol 3e-3 * max|ref| with rtol 2e-3) and the damped-solve
@@ -75,7 +75,7 @@ def case():
     images = interop.array_from_numpy(images_flat, "cpu")
     jsolve = jmega.make_mega_solver("pinhole", images_flat, H, W, jprob_d, K,
                                     jplan_d, interpret=True)
-    tsolve = tmega.make_mega_solver("pinhole", images, H, W, tprob_d, K,
+    tsolve = tmega.make_mega_solver("pinhole", images, H, W, tprob_d,
                                     tplan_d, device="cpu")
     return SimpleNamespace(problem=problem, tproblem=tproblem, jprob_d=jprob_d,
                            jplan_d=jplan_d, tprob_d=tprob_d, tplan_d=tplan_d,
@@ -84,31 +84,40 @@ def case():
 
 
 def test_dense_plan_tables_identical(case):
+    """The port's dense plan is the JAX plan with group rows mapped to slot
+    rows (the JAX layout's ``order``): the kernel's columns are the slot
+    rows themselves, empty slots zero columns."""
     jplan, jmeta, jidx = jmega.build_mega_plan(case.jprob_d, case.jplan_d,
                                                case.K)
-    tplan, tmeta, tidx = tmega.build_mega_plan(case.tprob_d, case.tplan_d,
-                                               case.K)
-    # the JAX package pads the pair chunks to a multiple of 64 with dummy
-    # chunks (zrow rows, the dropped K*K block); the port's count is exact
+    tplan, rows = tmega.build_mega_plan(case.tprob_d, case.tplan_d)
+    valid = _np(case.tprob_d.obs.valid) != 0
+    Os = valid.size
+    assert not valid.all()            # the layout has empty slots
+    np.testing.assert_array_equal(rows, np.where(valid, np.arange(Os), -1))
+    # the pair chunks name the same slot rows; each package's dummies
+    # gather a zero row (JAX: its padding row zrow, the port: an empty
+    # slot).  The JAX package pads the chunk count to a multiple of 64
+    # with dummy chunks; the port's count is exact
     n = tplan.pg.shape[0]
-    jpg, jcc = np.asarray(jplan.pg), np.asarray(jplan.cc_rows4)
-    np.testing.assert_array_equal(tplan.pg, jpg[:n])
-    np.testing.assert_array_equal(tplan.cc_rows4, jcc[:n])
-    assert (jpg[n:] == jmeta["zrow"]).all() and (jcc[n:] == case.K ** 2).all()
-    np.testing.assert_array_equal(tplan.g_of_s, np.asarray(jplan.g_of_s))
+    j_slot = np.r_[jmeta["order"], -1]
+    jpg = j_slot[np.asarray(jplan.pg)]
+    tpg = np.where(valid[np.clip(tplan.pg, 0, Os - 1)], tplan.pg, -1)
+    np.testing.assert_array_equal(tpg, jpg[:n])
+    assert (rows[tplan.pg[tpg < 0]] == -1).all()
+    assert (jpg[n:] == -1).all()
+    assert (np.asarray(jplan.cc_rows4)[n:] == case.K ** 2).all()
     for name in ("lm_cam", "anchor_cam_of_lm"):
         np.testing.assert_array_equal(_np(getattr(tplan, name)),
                                       np.asarray(getattr(jplan, name)),
                                       err_msg=name)
-    for key in ("order", "take", "Og", "zrow"):
-        np.testing.assert_array_equal(tmeta[key], jmeta[key], err_msg=key)
-    # the JAX tuple also carries each row's target image, which the port's
-    # kernel reads per group from iog instead
-    for a, b in zip(tidx, jidx[:3] + jidx[4:]):
-        np.testing.assert_array_equal(a, b)
-    # make_mega_consts takes the dense layout as it takes the chunk layout
-    consts = tmega.make_mega_consts("pinhole", case.tprob_d, tmeta, tidx)
-    assert consts.d3.shape == (3 * tmega.P, tmeta["Og"])
+    # the slot rows of the JAX layout's group rows, and no padding here
+    order = jmeta["order"]
+    np.testing.assert_array_equal(np.sort(order[order >= 0]),
+                                  np.flatnonzero(valid))
+    assert jmeta["Og"] > rows.size
+    consts = tmega.make_mega_consts("pinhole", case.tprob_d, rows)
+    assert consts.d3.shape == (3 * tmega.P, Os)
+    np.testing.assert_array_equal(_np(consts.timg) < 0, ~valid)
 
 
 def test_build_mega2_matches_jax(case):
@@ -148,7 +157,7 @@ def test_dense_matches_chunk_family(case):
     on the original order give the same cost and damped-solve deltas."""
     cfg = tba.BAConfig(max_iterations=1, huber_delta=HUBER)
     chunk = tmega.make_mega_solver("pinhole", case.images, case.H, case.W,
-                                   case.tproblem, case.K, device="cpu")
+                                   case.tproblem, device="cpu")
     c1, neq1 = chunk.build(case.tproblem, cfg)
     c2, neq2 = case.tsolve.build(case.tprob_d, cfg)
     np.testing.assert_allclose(float(c2), float(c1), rtol=1e-6)
@@ -182,7 +191,7 @@ def noise_case():
                                     jplan_d, interpret=True)
     tsolve = tmega.make_mega_solver(
         "pinhole", interop.array_from_numpy(images_flat, "cpu"), H, W,
-        tprob_d, K, tplan_d, device="cpu")
+        tprob_d, tplan_d, device="cpu")
     return SimpleNamespace(jprob_d=jprob_d, tprob_d=tprob_d, jsolve=jsolve,
                            tsolve=tsolve)
 
@@ -233,19 +242,16 @@ def test_bf16_tier_against_f32_and_jax(noise_case):
 
 
 def test_bf16_reference_widens_the_stack(noise_case):
-    """The plain version of the bf16 entry is the f32 plain version on the
+    """The plain version of the bf16 tier is the f32 plain version on the
     widened stack, exactly."""
     s = noise_case.tsolve
-    consts = s.consts
     p = noise_case.tprob_d
-    ux, uy, _, GA, GB = tmega.warp_slabs("pinhole", p.cam_states,
-                                         p.inv_depth, consts)
-    aff = tmega.affine_slab(p.cam_states.affine, consts)
-    args = (ux, uy, GA, GB, consts.refp, aff, consts.iog, consts.cnt, HUBER)
+    args = (p.cam_states, p.inv_depth, s.consts, HUBER)
     bf = s.images.to(torch.bfloat16)
-    out = tmega.mega_rj(bf, *args)
-    assert torch.equal(out, tmega.mega_rj_reference(bf.float(), *args))
-    assert not torch.equal(out, tmega.mega_rj(s.images, *args))
+    out = tmega.mega_fused("pinhole", bf, *args)
+    assert torch.equal(out, tmega.mega_fused_reference("pinhole", bf.float(),
+                                                       *args))
+    assert not torch.equal(out, tmega.mega_fused("pinhole", s.images, *args))
 
 
 def test_refine_photometric_bf16_lowers_cost():

@@ -1,16 +1,19 @@
 """Parity of the port's patch sampler (ops/patch_sample.py) with the JAX
-package's: the host group layout, the plain PyTorch version against the
-Pallas kernel (interpret mode on the CPU) and against the gather sampler
-``bilinear_sample_and_grad``.
+package's: the plain PyTorch version on observation columns against the
+Pallas kernel (interpret mode on the CPU) on its group layout, and against
+the gather sampler ``bilinear_sample_and_grad``.
 
-The Pallas kernel samples through its tile contraction on coordinates
-relative to a quantised window, so it agrees with exact bilinear sampling
-to f32 association order: rtol 1e-3 / atol 1e-3 on grey values, the JAX
-package's own tile-vs-gather tolerance (tests/test_photometric_ba.py).
-The port's plain version and the gather sampler share their arithmetic
-(rtol 1e-5).  Points beyond the kernel's window (past about 3x patch
-stretch) are where the two kernels differ on purpose: the port samples the
-image exactly there.
+The JAX kernel takes observations sorted by target image in 128-row
+groups (its ``group_layout``); the port's sampler takes each column's own
+image, so the JAX outputs are permuted from group order to observation
+columns through the JAX package's own layout.  The Pallas kernel samples
+through its tile contraction on coordinates relative to a quantised
+window, so it agrees with exact bilinear sampling to f32 association
+order: rtol 1e-3 / atol 1e-3 on grey values, the JAX package's own
+tile-vs-gather tolerance (tests/test_photometric_ba.py).  The port's plain
+version and the gather sampler share their arithmetic (rtol 1e-5).  Points
+beyond the kernel's window (past about 3x patch stretch) are where the two
+kernels differ on purpose: the port samples the image exactly there.
 """
 
 from types import SimpleNamespace
@@ -29,6 +32,7 @@ torch.set_num_threads(1)
 H, W, KIMG = 64, 96, 3
 COUNTS = (128, 70, 5)
 STRETCHED = 3            # column whose patch spans more than the window
+N_ZERO = 3               # zero columns (image -1) after the observations
 
 
 def _layout_case(kind):
@@ -40,72 +44,102 @@ def _layout_case(kind):
     return rng.integers(0, 5, 1000), 5
 
 
+def _group_of_obs(order):
+    g = np.full(order.max() + 1, -1)
+    g[order[order >= 0]] = np.flatnonzero(order >= 0)
+    return g
+
+
+def _points(rng, O, w=W, h=H):
+    """Patch points clustered around one centre per column."""
+    base = np.stack([rng.uniform(3, w - 4, O), rng.uniform(3, h - 4, O)])
+    ux = base[0][None] + rng.uniform(-2.5, 2.5, (tps.P, O))
+    uy = base[1][None] + rng.uniform(-2.5, 2.5, (tps.P, O))
+    return ux.astype(np.float32), uy.astype(np.float32)
+
+
 @pytest.mark.parametrize("kind", ["random", "empty_images",
                                   "exact_multiples"])
-def test_group_layout_matches_jax(kind):
+def test_sampler_columns_match_jax_group_layout(kind):
+    """The plain sampler on observation columns gives, column for column,
+    what it gives on the JAX package's group layout (each group row
+    sampling its group's image, padding rows zero columns), bit for bit."""
     target_img, n_images = _layout_case(kind)
-    ref = jps.group_layout(target_img, n_images)
-    port = tps.group_layout(target_img, n_images)
-    for name, a, b in zip(["order", "img_of_group", "group_counts"], port,
-                          ref):
-        np.testing.assert_array_equal(a, b, err_msg=name)
-        assert a.dtype == b.dtype, name
-    assert port[0].shape[0] % tps.GROUP == 0
+    order, iog, cnt = jps.group_layout(target_img, n_images)
+    rng = np.random.default_rng(2)
+    images = torch.as_tensor(
+        rng.uniform(0, 255, (n_images, H, W)).astype(np.float32))
+    ux, uy = (torch.as_tensor(a) for a in _points(rng, target_img.size))
+    img = torch.as_tensor(target_img, dtype=torch.int32)
+    port = tps.sample_patches(images, ux, uy, img, (H, W))
+    take = torch.as_tensor(np.where(order >= 0, order, 0))
+    lane = np.arange(order.size) % jps.GROUP
+    img_g = np.where(lane < np.repeat(cnt, jps.GROUP),
+                     np.repeat(iog, jps.GROUP), -1)
+    group = tps.sample_patches(images, ux[:, take], uy[:, take],
+                               torch.as_tensor(img_g, dtype=torch.int32),
+                               (H, W))
+    g = torch.as_tensor(_group_of_obs(order))
+    for a, b in zip(port, group):
+        assert torch.equal(a, b[:, g])
+        assert (b[:, torch.as_tensor(img_g < 0)] == 0).all()
 
 
 @pytest.fixture(scope="module")
 def case():
-    """Three groups of clustered patch points (inside the TPU kernel's
-    window), one column stretched across the image, and the JAX kernel's
-    output for both ``want_grads`` settings."""
+    """Observation columns of three images, in shuffled order, with
+    clustered patch points (inside the TPU kernel's window), one column
+    stretched across the image, N_ZERO zero columns after them, and the
+    JAX kernel's output on its group layout permuted to the columns, for
+    both ``want_grads`` settings."""
     rng = np.random.default_rng(0)
     images = rng.uniform(0, 255, (KIMG, H, W)).astype(np.float32)
-    Opad = len(COUNTS) * tps.GROUP
-    base = np.stack([rng.uniform(3, W - 4, Opad), rng.uniform(3, H - 4, Opad)])
-    ux = (base[0][None] + rng.uniform(-2.5, 2.5, (tps.P, Opad))).astype(np.float32)
-    uy = (base[1][None] + rng.uniform(-2.5, 2.5, (tps.P, Opad))).astype(np.float32)
+    target_img = rng.permutation(np.repeat(np.arange(KIMG), COUNTS))
+    O = target_img.size
+    ux, uy = _points(rng, O + N_ZERO)
     uy[:, STRETCHED] = np.linspace(4.0, 50.0, tps.P)
-    iog = np.array([0, 1, 2], np.int32)
-    cnt = np.array(COUNTS, np.int32)
+    order, iog, cnt = jps.group_layout(target_img, KIMG)
+    take = np.where(order >= 0, order, 0)
     pad, HW = jps.pad_images(jnp.asarray(images))
+    g = _group_of_obs(order)
     jax_out = {}
     for wg in (True, False):
-        jax_out[wg] = [np.asarray(a) for a in jps.sample_patches_grouped(
-            pad, jnp.asarray(ux), jnp.asarray(uy), jnp.asarray(iog),
-            jnp.asarray(cnt), HW=HW, want_grads=wg, interpret=True)]
-    lane = np.arange(Opad) % tps.GROUP
-    valid = lane < np.repeat(cnt, tps.GROUP)
-    return SimpleNamespace(images=images, ux=ux, uy=uy, iog=iog, cnt=cnt,
-                           jax=jax_out, valid=valid)
+        jax_out[wg] = [np.asarray(a)[:, g] for a in jps.sample_patches_grouped(
+            pad, jnp.asarray(ux[:, take]), jnp.asarray(uy[:, take]),
+            jnp.asarray(iog), jnp.asarray(cnt), HW=HW, want_grads=wg,
+            interpret=True)]
+    img = np.r_[target_img, np.full(N_ZERO, -1)].astype(np.int32)
+    return SimpleNamespace(images=images, ux=ux, uy=uy, img=img, O=O,
+                           jax=jax_out)
 
 
 def _port(case, want_grads, ux=None, uy=None):
     t = torch.as_tensor
-    out = tps.sample_patches_grouped(
+    out = tps.sample_patches(
         t(case.images), t(case.ux if ux is None else ux),
-        t(case.uy if uy is None else uy), t(case.iog), t(case.cnt), (H, W),
-        want_grads)
+        t(case.uy if uy is None else uy), t(case.img), (H, W), want_grads)
     return [a.numpy() for a in out]
 
 
 @pytest.mark.parametrize("want_grads", [True, False])
 def test_plain_sampler_matches_jax_kernel(case, want_grads):
     port = _port(case, want_grads)
-    cols = case.valid.copy()
+    cols = np.ones(case.O, bool)
     cols[STRETCHED] = False
     for name, a, b in zip(["val", "gx", "gy"], port, case.jax[want_grads]):
-        assert a.shape == (tps.P, case.ux.shape[1])
-        np.testing.assert_allclose(a[:, cols], b[:, cols], rtol=1e-3,
-                                   atol=1e-3, err_msg=name)
-        # padding slots are exact zeros (the TPU kernel leaves garbage)
-        assert (a[:, ~case.valid] == 0).all(), name
+        assert a.shape == (tps.P, case.O + N_ZERO)
+        np.testing.assert_allclose(a[:, :case.O][:, cols], b[:, cols],
+                                   rtol=1e-3, atol=1e-3, err_msg=name)
+        # zero columns are exact zeros
+        assert (a[:, case.O:] == 0).all(), name
     if not want_grads:
         assert not port[1].any() and not port[2].any()
 
 
 def _gather(case, ux, uy):
-    """The JAX gather sampler at each column's group image."""
-    img = np.repeat(case.iog, tps.GROUP)[None, :] * np.ones((tps.P, 1), int)
+    """The JAX gather sampler at each column's image (image 0 for the
+    zero columns)."""
+    img = np.maximum(case.img, 0)[None, :] * np.ones((tps.P, 1), int)
     return [np.asarray(a) for a in jpba.bilinear_sample_and_grad(
         jnp.asarray(case.images.reshape(-1)), jnp.asarray(img),
         jnp.asarray(np.stack([ux, uy], -1)), H, W)]
@@ -121,11 +155,11 @@ def test_plain_sampler_matches_gather_sampler_everywhere(case):
     ux[:, 30], uy[:, 30] = -1e6, -1e6
     port = _port(case, True, ux, uy)
     ref = _gather(case, ux, uy)
-    v = case.valid
+    v = slice(0, case.O)
     for name, a, b in zip(["val", "gx", "gy"], port, ref):
         np.testing.assert_allclose(a[:, v], b[:, v], rtol=1e-5, atol=1e-4,
                                    err_msg=name)
-    assert port[0][0, 30] == case.images[0, 0, 0]
+    assert port[0][0, 30] == case.images[case.img[30], 0, 0]
     assert port[1][:, 30].sum() == 0 and port[2][:, 30].sum() == 0
     assert (port[1][:, 10:13] == 0).all() and (port[2][:, 20:23] == 0).all()
 
@@ -145,8 +179,8 @@ def test_stretched_patch_is_exact_where_the_tpu_kernel_clamps(case):
 
 
 def test_wrapper_rejects_unsupported_device():
-    meta = torch.empty((tps.P, tps.GROUP), device="meta")
-    idx = torch.zeros(1, dtype=torch.int32, device="meta")
+    meta = torch.empty((tps.P, 16), device="meta")
+    idx = torch.zeros(16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tps.sample_patches_grouped(torch.empty((1, 4, 4), device="meta"),
-                                   meta, meta, idx, idx, (4, 4))
+        tps.sample_patches(torch.empty((1, 4, 4), device="meta"), meta, meta,
+                           idx, (4, 4))

@@ -2,13 +2,16 @@
 package's chunk-plan family, on the same numpy-seeded toy problem
 (K=12 cameras, L=48 landmarks, 3 observations each, 64x96 images).
 
-The JAX side runs its Pallas kernel in interpret mode on the CPU, as
-tests/test_pba_mega.py does; the port runs the kernel's plain PyTorch
-version, which is what ``mega_rj`` calls for CPU tensors.  The JAX f32
-kernel samples through split-bf16 panels (about 2^-15 relative), so
-Jacobian and payload rows are held to atol 3e-3 * max|ref| and the
-normal equations to the reference's own build tolerances (cost rtol 2e-4,
-pieces atol 3e-3 * max|ref| with rtol 2e-3).
+The JAX side runs its warp and its Pallas kernel in interpret mode on the
+CPU, as tests/test_pba_mega.py does, on its group layout (observations
+sorted by target image, each image's range padded to 256 rows); its
+outputs are permuted to the port's observation columns through the JAX
+package's own layout (``mega_layout``'s ``order``).  The port runs the
+kernel's plain PyTorch version, which is what ``mega_fused`` calls for CPU
+tensors.  The JAX f32 kernel samples through split-bf16 panels (about
+2^-15 relative), so Jacobian and payload rows are held to atol
+3e-3 * max|ref| and the normal equations to the reference's own build
+tolerances (cost rtol 2e-4, pieces atol 3e-3 * max|ref| with rtol 2e-3).
 """
 
 from types import SimpleNamespace
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from photometric_bundle_adjustment_tpu.core import cameras as jcam
+from photometric_bundle_adjustment_tpu.ops import patch_sample as jps
 from photometric_bundle_adjustment_tpu.ops import pba_mega as jmega
 from photometric_bundle_adjustment_tpu.optim import ba as jba
 from photometric_bundle_adjustment_tpu_torch import interop
@@ -70,9 +74,18 @@ def _jax_consts(model, problem, K):
     return cplan, meta, idx, jmega.make_mega_consts(model, problem, meta, idx)
 
 
-def _port_consts(model, tproblem, K):
-    cplan, meta, idx = tmega.build_chunk_mega_plan(tproblem, K)
-    return cplan, meta, idx, tmega.make_mega_consts(model, tproblem, meta, idx)
+def _port_consts(model, tproblem):
+    cplan, rows = tmega.build_chunk_mega_plan(tproblem)
+    return cplan, rows, tmega.make_mega_consts(model, tproblem, rows)
+
+
+def _jax_columns(meta, rows):
+    """The JAX group row of each port column but the last (the zero
+    column): the inverse of the JAX layout's ``order``."""
+    order = meta["order"]
+    g_of_obs = np.full(order.max() + 1, -1)
+    g_of_obs[order[order >= 0]] = np.flatnonzero(order >= 0)
+    return g_of_obs[rows[:-1]]
 
 
 @pytest.fixture(scope="module")
@@ -87,38 +100,46 @@ def case():
     )
     tsolver = tmega.make_mega_solver(
         model, interop.array_from_numpy(images_flat, "cpu"), H, W, tproblem,
-        K, device="cpu",
+        device="cpu",
     )
     return SimpleNamespace(model=model, problem=problem, tproblem=tproblem,
-                           images=images, H=H, W=W, K=K, jsolve=jmega_solver,
-                           tsolve=tsolver)
+                           images=images, images_flat=images_flat, H=H, W=W,
+                           K=K, jsolve=jmega_solver, tsolve=tsolver)
 
 
 def test_chunk_plan_arrays_identical(case):
+    """The port's chunk plan is the JAX plan with group rows mapped to
+    observation rows: both name the same observations in every chunk."""
     jc, jmeta, jidx, jconsts = _jax_consts(case.model, case.problem, case.K)
-    tc, tmeta, tidx, tconsts = _port_consts(case.model, case.tproblem, case.K)
-    for name in ("pg", "cc_rows4", "lm_cam", "anchor_cam_of_lm"):
+    tc, rows, tconsts = _port_consts(case.model, case.tproblem)
+    # the JAX plans index group rows (Og = their dummy, padding rows none),
+    # the port's its columns (the last, the zero column, is the dummy)
+    j_obs = np.r_[jmeta["order"], -1]
+    assert rows[-1] == -1 and (rows[:-1] >= 0).all()
+    np.testing.assert_array_equal(rows[tc.pg], j_obs[np.asarray(jc.pg)])
+    for name in ("cc_rows4", "lm_cam", "anchor_cam_of_lm"):
         np.testing.assert_array_equal(getattr(tc, name), getattr(jc, name),
                                       err_msg=name)
     for name in ("lm", "gc_a", "gc_t"):
-        for leaf in ("gidx", "rows"):
-            np.testing.assert_array_equal(
-                getattr(getattr(tc, name), leaf),
-                getattr(getattr(jc, name), leaf), err_msg=f"{name}.{leaf}")
-    for key in ("order", "take", "Og", "zrow"):
-        np.testing.assert_array_equal(tmeta[key], jmeta[key], err_msg=key)
-    # the JAX tuple also carries each row's target image, which the port's
-    # kernel reads per group from iog instead
-    jidx = jidx[:3] + jidx[4:]
-    for a, b in zip(tidx, jidx):
-        np.testing.assert_array_equal(a, b)
-    for name in ("an", "tn", "lm", "iog", "cnt"):
-        np.testing.assert_array_equal(_np(getattr(tconsts, name)),
-                                      _np(getattr(jconsts, name)),
+        t, j = getattr(tc, name), getattr(jc, name)
+        np.testing.assert_array_equal(rows[t.gidx], j_obs[np.asarray(j.gidx)],
+                                      err_msg=f"{name}.gidx")
+        np.testing.assert_array_equal(t.rows, j.rows, err_msg=f"{name}.rows")
+    # no padding: one column per valid observation, plus the zero column
+    assert rows.size == int((np.asarray(case.problem.obs.valid) != 0).sum()) + 1
+    assert jmeta["Og"] > rows.size
+    jcol = _jax_columns(jmeta, rows)
+    for name in ("an", "tn", "lm", "timg"):
+        np.testing.assert_array_equal(_np(getattr(tconsts, name))[:-1],
+                                      _np(getattr(jconsts, name))[jcol],
                                       err_msg=name)
+    assert int(tconsts.timg[-1]) == -1
+    np.testing.assert_array_equal(_np(tconsts.cols),
+                                  np.stack([_np(tconsts.an), _np(tconsts.tn),
+                                            _np(tconsts.lm), _np(tconsts.timg)]))
     for name in ("d3", "intr_t", "refp"):
-        np.testing.assert_allclose(_np(getattr(tconsts, name)),
-                                   _np(getattr(jconsts, name)),
+        np.testing.assert_allclose(_np(getattr(tconsts, name))[:, :-1],
+                                   _np(getattr(jconsts, name))[:, jcol],
                                    rtol=1e-6, atol=1e-6, err_msg=name)
 
 
@@ -127,76 +148,95 @@ def test_warp_slabs_matches_jax(model):
     problem, _, _, _ = _toy_problem(model, seed=5)
     K = problem.cam_states.pose.shape[0]
     tproblem = interop.problem_from_numpy(problem, "cpu")
-    *_, jconsts = _jax_consts(model, problem, K)
-    *_, tconsts = _port_consts(model, tproblem, K)
+    _, jmeta, _, jconsts = _jax_consts(model, problem, K)
+    _, rows, tconsts = _port_consts(model, tproblem)
     ref = jmega.warp_slabs(model, problem.cam_states, problem.inv_depth,
                            jconsts)
     port = tmega.warp_slabs(model, tproblem.cam_states, tproblem.inv_depth,
                             tconsts)
-    np.testing.assert_array_equal(_np(port[2]), _np(ref[2]))
+    jcol = _jax_columns(jmeta, rows)
+    np.testing.assert_array_equal(_np(port[2])[:, :-1], _np(ref[2])[:, jcol])
     for name, a, b in zip(["ux", "uy", "GA", "GB"],
                           [port[0], port[1], port[3], port[4]],
                           [ref[0], ref[1], ref[3], ref[4]]):
-        _close_scaled(a, b, 1e-5, rtol=1e-4, msg=name)
+        _close_scaled(_np(a)[:, :-1], _np(b)[:, jcol], 1e-5, rtol=1e-4,
+                      msg=name)
 
 
-def _kernel_inputs(case):
-    """The JAX warp of the toy problem, with a few observations pushed off
-    the image and one made non-finite; numpy arrays."""
-    consts = case.jsolve.consts
+def _pushed_state(problem):
+    """The toy state with observations made off-image and non-finite
+    through the state: camera 5 shifted sideways by 1.5 (its targets leave
+    the image), landmark 7 at a negative inverse depth, landmark 11 at an
+    infinite one (its projections are not finite)."""
+    pose = np.array(problem.cam_states.pose)
+    pose[5, 0] += 1.5
+    rho = np.array(problem.inv_depth)
+    rho[7] = -abs(rho[7])
+    rho[11] = np.inf
+    return problem._replace(
+        cam_states=problem.cam_states._replace(pose=jnp.asarray(pose)),
+        inv_depth=jnp.asarray(rho))
+
+
+@pytest.mark.parametrize("model", ["pinhole", "eucm", "ds", "kb4"])
+def test_fused_plain_matches_jax_kernel(case, model):
+    """The kernel's plain version (``mega_fused`` on CPU tensors) against
+    the JAX warp and Pallas kernel (interpret mode), in every camera
+    model, with off-image and non-finite observations."""
+    problem, images_flat, H, W = _toy_problem(model)
+    problem = _pushed_state(problem)
+    K = problem.cam_states.pose.shape[0]
+    _, jmeta, _, consts = _jax_consts(model, problem, K)
     ux, uy, _, GA, GB = jmega.warp_slabs(
-        case.model, case.problem.cam_states, case.problem.inv_depth, consts)
-    ux, uy = np.array(ux), np.array(uy)
-    ux[:, 3] -= 200.0           # left of the image
-    uy[:, 5] += 150.0           # below the image
-    ux[:, 7] = -1e6             # a non-finite projection
-    uy[:, 7] = -1e6
-    A = np.asarray(case.problem.cam_states.affine)
+        model, problem.cam_states, problem.inv_depth, consts)
+    A = np.asarray(problem.cam_states.affine)
     an, tn = np.asarray(consts.an), np.asarray(consts.tn)
     aff = np.stack([A[an, 0], A[an, 1], A[tn, 0], A[tn, 1]], 0)
-    return dict(ux=ux, uy=uy, GA=np.array(GA), GB=np.array(GB),
-                refp=np.array(consts.refp), aff=aff.astype(np.float32),
-                iog=np.array(consts.iog), cnt=np.array(consts.cnt))
-
-
-def test_mega_rj_reference_matches_jax_kernel(case):
-    x = _kernel_inputs(case)
-    consts = case.jsolve.consts
+    pad, HW = jps.pad_images(jnp.asarray(images_flat).reshape(-1, H, W))
     ref = np.asarray(jmega.mega_rj(
-        case.jsolve.images_pad, x["ux"], x["uy"], x["GA"], x["GB"],
-        x["refp"], x["aff"], consts.iog, consts.cnt, consts.ictl,
-        consts.inxt, HW=case.jsolve.HW, huber_delta=HUBER, interpret=True,
-    ))
-    t = {k: torch.as_tensor(v) for k, v in x.items()}
-    port = tmega.mega_rj(case.images, t["ux"], t["uy"], t["GA"], t["GB"],
-                         t["refp"], t["aff"], t["iog"], t["cnt"], HUBER)
-    port = _np(port)
-    assert port.shape == ref.shape == (tmega.OUT_ROWS, x["ux"].shape[1])
-    # the non-finite projection poisons its residuals and cost with NaN
-    assert np.isnan(port[tmega.ROW_COST, 7]) and np.isnan(ref[tmega.ROW_COST, 7])
-    ok = np.isfinite(ref[tmega.ROW_COST])
-    assert ok.sum() == ok.size - 1
+        jmega.split_pack_images(pad), ux, uy, GA, GB, consts.refp,
+        aff.astype(np.float32), consts.iog, consts.cnt, consts.ictl,
+        consts.inxt, HW=HW, huber_delta=HUBER, interpret=True))
+    tproblem = interop.problem_from_numpy(problem, "cpu")
+    _, rows, tconsts = _port_consts(model, tproblem)
+    port = _np(tmega.mega_fused(model, case.images, tproblem.cam_states,
+                                tproblem.inv_depth, tconsts, HUBER))
+    assert port.shape == (tmega.OUT_ROWS, rows.size)
+    assert (port[:, -1] == 0).all()          # the zero column
+    ref = ref[:, _jax_columns(jmeta, rows)]
+    port = port[:, :-1]
+    ux_t = _np(ux)[:, _jax_columns(jmeta, rows)]
+    # some observations left the image, some are not finite
+    assert ((ux_t < 0) | (ux_t > W - 1)).any(axis=0).sum() >= 3
+    nan = np.isnan(ref[tmega.ROW_COST])
+    assert nan.sum() >= 2
+    np.testing.assert_array_equal(np.isnan(port[tmega.ROW_COST]), nan)
+    ok = ~nan
     np.testing.assert_allclose(port[tmega.ROW_COST, ok].sum(),
                                ref[tmega.ROW_COST, ok].sum(), rtol=2e-4)
-    for name, rows in [("J", slice(0, 136)), ("r*sw", slice(136, 144)),
-                       ("cost", slice(144, 145)), ("A0", slice(145, 162)),
-                       ("A1", slice(162, 179)), ("pad", slice(179, 184))]:
-        _close_scaled(port[rows][:, ok], ref[rows][:, ok], 3e-3, msg=name)
+    for name, rows_ in [("J", slice(0, 136)), ("r*sw", slice(136, 144)),
+                        ("cost", slice(144, 145)), ("A0", slice(145, 162)),
+                        ("A1", slice(162, 179)), ("pad", slice(179, 184))]:
+        _close_scaled(port[rows_][:, ok], ref[rows_][:, ok], 3e-3, msg=name)
 
 
-def test_mega_rj_padding_rows_are_exact_zeros(case):
-    x = _kernel_inputs(case)
-    t = {k: torch.as_tensor(v) for k, v in x.items()}
-    # garbage (non-finite) slabs in the padding rows must not leak out
-    lane = np.arange(x["ux"].shape[1]) % tmega.GROUP
-    pad = lane >= np.repeat(x["cnt"], tmega.GROUP)
-    assert pad.any()
-    t["GA"][:, torch.as_tensor(pad)] = float("nan")
-    t["ux"][:, torch.as_tensor(pad)] = -1e6
-    out = _np(tmega.mega_rj(case.images, t["ux"], t["uy"], t["GA"], t["GB"],
-                            t["refp"], t["aff"], t["iog"], t["cnt"], HUBER))
-    assert (out[:, pad] == 0.0).all()
-    assert np.isfinite(out[:, ~pad & (np.arange(pad.size) != 7)]).all()
+def test_zero_columns_are_exact_zeros(case):
+    """Columns with a negative image are exact zeros whatever the state of
+    their cameras: a NaN pose must not leak out."""
+    rows = np.r_[-1, 0, 1, 2, -1, 3, -1]
+    consts = tmega.make_mega_consts(case.model, case.tproblem, rows)
+    cams = case.tproblem.cam_states
+    pose = cams.pose.clone()
+    pose[int(consts.an[0])] = float("nan")
+    out = _np(tmega.mega_fused(case.model, case.images,
+                               cams._replace(pose=pose),
+                               case.tproblem.inv_depth, consts, HUBER))
+    zero = rows < 0
+    assert (out[:, zero] == 0.0).all()
+    assert np.isnan(out[tmega.ROW_COST, ~zero]).any()
+    good = _np(tmega.mega_fused(case.model, case.images, cams,
+                                case.tproblem.inv_depth, consts, HUBER))
+    assert (good[:, zero] == 0.0).all() and np.isfinite(good).all()
 
 
 def test_build_mega_chunk_matches_jax(case):
@@ -241,8 +281,8 @@ def test_solver_rejects_unported_paths(case):
     (tests/test_torch_mega_dense.py holds both against the JAX package)."""
     with pytest.raises(TypeError, match="DenseLmSchurPlan"):
         tmega.make_mega_solver(case.model, case.images.reshape(-1), case.H,
-                               case.W, case.tproblem, case.K,
-                               plan_slot=object(), device="cpu")
+                               case.W, case.tproblem, plan_slot=object(),
+                               device="cpu")
     _, res = case.tsolve(case.tproblem, tba.BAConfig(
         max_iterations=2, huber_delta=HUBER, sample_bf16=True))
     assert np.isfinite(float(res.cost))

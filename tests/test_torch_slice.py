@@ -16,6 +16,7 @@ import torch
 
 from photometric_bundle_adjustment_tpu.pipeline import pba_refine as jrefine
 from photometric_bundle_adjustment_tpu_torch import interop
+from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
@@ -95,13 +96,12 @@ def test_port_imports_and_solves_without_jax():
         prob, imgs, H, W = synthetic.euroc_scale_pba(
             K=12, L=48, obs_per_lm=3, H=64, W=96, device="cpu")
         cfg = ba.BAConfig(max_iterations=2, huber_delta=9.0)
-        p2, iog, cnt = pba.imagesort_problem(prob, 12)
-        solve = pba.make_kernel_fused_solver("pinhole", imgs, H, W, iog, cnt,
+        solve = pba.make_kernel_fused_solver("pinhole", imgs, H, W, prob,
                                              device="cpu")
-        _, r = solve(p2, fused.plan_for_problem(p2), cfg)
+        _, r = solve(prob, fused.plan_for_problem(prob), cfg)
         assert float(r.cost) < float(r.initial_cost), r
         p3, plan3 = fused.densify_problem(prob)
-        solve = pba.make_kernel_dense_solver("pinhole", imgs, H, W, p3, 12,
+        solve = pba.make_kernel_dense_solver("pinhole", imgs, H, W, p3,
                                              device="cpu")
         _, r = solve(p3, plan3, cfg._replace(cost_from_build=True))
         assert float(r.cost) < float(r.initial_cost), r
@@ -134,36 +134,28 @@ def test_port_imports_and_solves_without_jax():
 
 
 def test_plain_path_wide_image():
-    """W=8448 is wider than the TPU kernel's 14-bit column field; the plain
-    path must sample it exactly.  On a linear ramp I = a x + b y + c the
-    bilinear value is exact and the gradient is (a, b)."""
-    H, W, P = 16, 8448, pba_mega.P
-    a, b, c = 0.01, 0.5, 10.0
-    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64),
-                            torch.arange(W, dtype=torch.float64),
-                            indexing="ij")
-    images = (a * xs + b * ys + c).float()[None].repeat(2, 1, 1)
-    Og = 2 * pba_mega.GROUP
-    rng = np.random.default_rng(0)
-    ux = torch.as_tensor(rng.uniform(8000, W - 1.5, (P, Og)), dtype=torch.float32)
-    uy = torch.as_tensor(rng.uniform(0.5, H - 1.5, (P, Og)), dtype=torch.float32)
-    GA = torch.ones((13 * P, Og))
-    GB = torch.zeros((13 * P, Og))
-    zeros = torch.zeros
-    out = pba_mega.mega_rj(images, ux, uy, GA, GB, zeros((P, Og)),
-                           zeros((4, Og)), torch.tensor([0, 1], dtype=torch.int32),
-                           torch.tensor([256, 100], dtype=torch.int32), 0.0)
-    assert out.shape == (pba_mega.OUT_ROWS, Og)
-    valid = (torch.arange(Og) % pba_mega.GROUP) < torch.tensor([256, 100]).repeat_interleave(pba_mega.GROUP)
+    """W=8448 through the plain path: on a linear ramp the bilinear value
+    is exact and the gradient is (a, b)."""
+    images, cams, rho, consts, (a, b, c) = synthetic.wide_image_state(device="cpu")
+    out = pba_mega.mega_fused("pinhole", images, cams, rho, consts, 0.0)
+    ux, uy, _, GA, GB = pba_mega.warp_slabs("pinhole", cams, rho, consts)
+    N = consts.cols.shape[1]
+    assert out.shape == (pba_mega.OUT_ROWS, N)
+    valid = consts.timg >= 0
+    assert (ux[:, valid] > 8000).all() and (ux[:, valid] < 8448 - 1.5).all()
     assert torch.isfinite(out).all()
     assert (out[:, ~valid] == 0).all()
     ramp = (a * ux.double() + b * uy.double() + c).float()
-    # squared loss: sw = 1, r = I(u) - refp = I(u), J_geo = gx = a
+    # squared loss: sw = 1, r = I(u) - refp = I(u); GB[0] = 0, so the
+    # first Jacobian column is gx GA[0] = a GA[0]
     np.testing.assert_allclose(out[136:144, valid].numpy(),
                                ramp[:, valid].numpy(), rtol=2e-6)
+    assert (GB[:pba_mega.P] == 0).all()
     # the gradient is a difference of two f32 taps near 100 (ulp 7.6e-6)
-    J = out[:136].reshape(P, 17, Og)
-    np.testing.assert_allclose(J[:, 0, valid].numpy(), a, atol=3e-5)
+    J = out[:136].reshape(pba_mega.P, 17, N)
+    np.testing.assert_allclose(J[:, 0, valid].numpy(),
+                               (a * GA[:pba_mega.P, valid]).numpy(),
+                               atol=3e-5 * float(GA[:pba_mega.P].abs().max()))
     np.testing.assert_allclose(out[pba_mega.ROW_COST, valid].numpy(),
                                0.5 * (ramp[:, valid].double() ** 2).sum(0).numpy(),
                                rtol=1e-5)
@@ -178,10 +170,9 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pba_refine.refine_photometric(pipe, levels=1, sample_bf16=True,
                                       device="cuda")
-    meta = torch.empty((8, 256), device="meta")
+    images, cams, rho, consts, _ = synthetic.wide_image_state(device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        pba_mega.mega_rj(torch.empty((1, 4, 4), device="meta"), meta, meta,
-                         meta, meta, meta, meta, meta, meta, 9.0)
+        pba_mega.mega_fused("pinhole", images, cams, rho, consts, 9.0)
 
 
 def _entry_point_calls():
@@ -193,7 +184,6 @@ def _entry_point_calls():
     pipe = synthetic.synth_pba_pipe(K=4, L=8, seed=0)
     problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
         pipe, device="cpu")
-    from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
     from photometric_bundle_adjustment_tpu_torch.optim import fused
 
     from photometric_bundle_adjustment_tpu_torch.scripts import (
@@ -201,15 +191,14 @@ def _entry_point_calls():
         grid_overhead,
     )
 
-    prob_s, iog, cnt = pba.imagesort_problem(problem, 4)
     prob_d, plan_d = fused.densify_problem(problem)
     return {
         "make_fused_solver": lambda: pba.make_fused_solver(
             "ds", images_flat, H, W),
         "make_kernel_fused_solver": lambda: pba.make_kernel_fused_solver(
-            "ds", images_flat, H, W, iog, cnt),
+            "ds", images_flat, H, W, problem),
         "make_kernel_dense_solver": lambda: pba.make_kernel_dense_solver(
-            "ds", images_flat, H, W, prob_d, 4),
+            "ds", images_flat, H, W, prob_d),
         "euroc_scale_pba": lambda: synthetic.euroc_scale_pba(
             K=12, L=8, H=32, W=48),
         "refine_photometric": lambda: pba_refine.refine_photometric(
@@ -217,12 +206,13 @@ def _entry_point_calls():
         "build_photometric_problem": lambda:
             pba_refine.build_photometric_problem(pipe),
         "make_mega_solver": lambda: pba_mega.make_mega_solver(
-            "ds", images_flat, H, W, problem, 4),
+            "ds", images_flat, H, W, problem),
         "make_mega_solver_dense": lambda: pba_mega.make_mega_solver(
-            "ds", images_flat, H, W, prob_d, 4, plan_d),
+            "ds", images_flat, H, W, prob_d, plan_d),
         "grid_overhead": lambda: grid_overhead.main([]),
         "exp_roll": lambda: exp_roll.main([]),
         "synth_pba_problem": lambda: synthetic.synth_pba_problem(),
+        "wide_image_state": lambda: synthetic.wide_image_state(),
         "synth_stereo_sequence": lambda: synthetic.synth_stereo_sequence(
             n_frames=1, H=40, W=60),
         "SfmPipeline": lambda: SfmPipeline(pipe.images, pipe.calib),
@@ -235,7 +225,8 @@ def _entry_point_calls():
     "make_fused_solver", "make_kernel_fused_solver",
     "make_kernel_dense_solver", "euroc_scale_pba", "refine_photometric", "build_photometric_problem", "make_mega_solver",
     "make_mega_solver_dense", "grid_overhead", "exp_roll",
-    "synth_pba_problem", "synth_stereo_sequence", "SfmPipeline",
+    "synth_pba_problem", "wide_image_state", "synth_stereo_sequence",
+    "SfmPipeline",
     "descriptors_from_numpy"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
@@ -257,10 +248,9 @@ def test_profile_solve_on_plain_path():
         "--device", "cpu", "--K", "12", "--L", "48", "--H", "64", "--W", "96",
         "--obs-per-lm", "3", "--long-tracks", "4", "--tries", "2",
         "--reps", "2"])
-    assert res["K"] == 12 and res["Og"] % pba_mega.GROUP == 0
-    assert 0 < res["observations"] <= res["Og"]
-    for k in ("build_ms", "warp_slabs_ms", "megakernel_ms", "solve_lam_ms",
-              "wall_ms"):
+    # the valid observations and the one zero column: no padding
+    assert res["K"] == 12 and res["columns"] == res["observations"] + 1
+    for k in ("build_ms", "megakernel_ms", "solve_lam_ms", "wall_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert res["top_self_ms"] and res["top_by"] == "self_cpu_time_total"
     assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
@@ -278,11 +268,13 @@ def test_profile_solve_mega_families_on_plain_path(family, bf16):
         "--H", "64", "--W", "96", "--obs-per-lm", "3", "--long-tracks", "4",
         "--tries", "2", "--reps", "2"] + (["--bf16"] if bf16 else []))
     assert (res["family"], res["bf16"]) == (family, bf16)
-    assert res["K"] == 12 and res["Og"] % pba_mega.GROUP == 0
+    assert res["K"] == 12
     if family == "dense":
-        assert res["observations"] == 48 * 3
-    for k in ("build_ms", "warp_slabs_ms", "megakernel_ms", "solve_lam_ms",
-              "wall_ms"):
+        # 48 landmarks x 4 slots, the empty ones zero columns
+        assert (res["observations"], res["columns"]) == (48 * 3, 48 * 4)
+    else:
+        assert res["columns"] == res["observations"] + 1
+    for k in ("build_ms", "megakernel_ms", "solve_lam_ms", "wall_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert np.isfinite(res["assembly_ms"])
     assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
