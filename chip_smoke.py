@@ -17,11 +17,9 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      PyTorch version (``warp_slabs`` + ``mega_rj_reference``) on the
      card, at EuRoC scale (164 images of 480x752, ~4.8k landmarks, ~30k
      observations; a state pushed so that some observations leave the
-     image, some lie behind the camera and some are not finite), in both
-     thread mappings and both column orders (sorted by target image, the
-     problem's own), all four timed on the device (CUDA graphs of 20
-     calls), the default also against the plain version and through its
-     wrapper; then on a pinhole toy state 8448 pixels wide;
+     image, some lie behind the camera and some are not finite), timed
+     on the device beside its plain version (CUDA graphs of 20 calls) and
+     through its wrapper; then on a pinhole toy state 8448 pixels wide;
   2. the photometric path: two first builds of the map's level-0 solver
      bit-equal, then ``refine_photometric`` on the synthetic EuRoC-scale
      map (3 pyramid levels, 20 iterations, Huber 9), checking that the
@@ -255,18 +253,18 @@ def warp_bounds(ref, images, warp):
     return smooth, dr, dJ.permute(1, 0, 2).reshape(136, N), dA0, dA1
 
 
-def compare_payloads(out, ref, images, label: str, warp=None) -> float:
+def compare_payloads(out, ref, images, label: str, warp) -> float:
     """Kernel payload against the plain version's; returns max |err| over
     the finite entries.  NaN columns (non-finite projections) must match.
     ``images`` sets the intensity scale of the cost row's FMA bound.
     Every row block is held at ROWS_ATOL times its max |ref|.
 
     ``warp`` = (ux, uy, GA, GB, consts), the plain version's warp and the
-    kernel's static columns, where the kernel computed its own warp: then each entry's bound also takes what a
-    move of WARP_ULPS ulps of its coordinates moves (``warp_bounds``), and
-    the columns with a point within WARP_ULPS ulps of a pixel edge are
-    held only to their NaN pattern and the total cost (their count is
-    printed)."""
+    kernel's static columns.  The kernel computes its own warp, so each
+    entry's bound also takes what a move of WARP_ULPS ulps of its
+    coordinates moves (``warp_bounds``), and the columns with a point
+    that close to a pixel edge are held only to their NaN pattern and the
+    total cost (their count is printed)."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
     cost_k, cost_r = out[pba_mega.ROW_COST], ref[pba_mega.ROW_COST]
@@ -277,16 +275,10 @@ def compare_payloads(out, ref, images, label: str, warp=None) -> float:
     eps = torch.finfo(torch.float32).eps
     ulp_img = eps * float(images.abs().max())
     N = out.shape[1]
-    zero = torch.zeros_like(ref)
-    extra = {"J": zero[:136], "r*sw": zero[136:144], "A0": zero[:17],
-             "A1": zero[:17], "pad": zero[:5]}
-    dr = zero[:8]
-    smooth = ok.clone()
-    if warp is not None:
-        sm, dr, dJ, dA0, dA1 = warp_bounds(ref, images, warp)
-        smooth &= sm
-        extra = {"J": dJ, "r*sw": dr * (-ref[15]).abs()[None, :], "A0": dA0,
-                 "A1": dA1, "pad": zero[:5]}
+    smooth, dr, dJ, dA0, dA1 = warp_bounds(ref, images, warp)
+    smooth &= ok
+    extra = {"J": dJ, "r*sw": dr * (-ref[15]).abs()[None, :], "A0": dA0,
+             "A1": dA1, "pad": torch.zeros_like(ref[179:184])}
     rel = ((cost_k[ok] - cost_r[ok]).abs()
            / cost_r[ok].abs().clamp_min(1e-30)).max()
     total_rel = abs(float(cost_k[ok].double().sum() - cost_r[ok].double().sum())
@@ -388,17 +380,13 @@ def bits_equal(build, label: str):
 
 
 def kernel_phase(pipe, device):
-    """Phase 1: the fused kernel against its plain version at EuRoC scale
-    (both thread mappings, both column orders, timed) and on an
-    8448-pixel-wide image.  Returns (max_abs_err, ms, plain_ms,
-    bound_ms)."""
+    """Phase 1: the fused kernel against its plain version at EuRoC scale,
+    timed, and on an 8448-pixel-wide image.  Returns (max_abs_err, ms,
+    plain_ms, bound_ms)."""
     from photometric_bundle_adjustment_tpu_torch.models import synthetic
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
-    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
-        graph_ms,
-        time_ms,
-    )
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import time_ms
 
     problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
         pipe, device=device)
@@ -406,55 +394,32 @@ def kernel_phase(pipe, device):
     model = pipe.calib.cam_types[0]
     images = images_flat.reshape(-1, H, W).contiguous()
     cams, rho = pushed_state(problem, device)
-    consts = {}
-    for by_image in (True, False):
-        _, rows = pba_mega.build_chunk_mega_plan(problem, by_image=by_image)
-        consts[by_image] = pba_mega.make_mega_consts(model, problem, rows)
-    c = consts[True]
+    _, rows = pba_mega.build_chunk_mega_plan(problem)
+    c = pba_mega.make_mega_consts(model, problem, rows)
     N = c.cols.shape[1]
     n_obs = int((c.timg >= 0).sum())
     print(f"phase 1: fused kernel vs plain at {K} images of {H}x{W}, model "
           f"{model}, {n_obs} observations in {N} columns (one zero column)")
-    max_err = 0.0
-    for by_image, cc in consts.items():
-        ref = pba_mega.mega_fused_reference(model, images, cams, rho, cc,
-                                            HUBER)
-        ux, uy, _, GA, GB = pba_mega.warp_slabs(model, cams, rho, cc)
-        for per_point in (True, False):
-            out = pba_mega.mega_fused(model, images, cams, rho, cc, HUBER,
-                                      per_point=per_point)
-            torch.cuda.synchronize()
-            label = (f"{'per point' if per_point else 'per observation'}, "
-                     f"{'sorted by image' if by_image else 'problem order'}")
-            err = compare_payloads(out, ref, images, label,
-                                   (ux, uy, GA, GB, cc))
-            check(bool((out[:, cc.timg < 0] == 0).all()),
-                  f"{label}: the zero column is not zero")
-            max_err = max(max_err, err)
-        del out, ref
+    ref = pba_mega.mega_fused_reference(model, images, cams, rho, c, HUBER)
+    out = pba_mega.mega_fused(model, images, cams, rho, c, HUBER)
+    torch.cuda.synchronize()
+    ux, uy, _, GA, GB = pba_mega.warp_slabs(model, cams, rho, c)
+    max_err = compare_payloads(out, ref, images, "EuRoC scale",
+                               (ux, uy, GA, GB, c))
+    check(bool((out[:, c.timg < 0] == 0).all()), "the zero column is not zero")
+    del out, ref
 
-    def kern(cc, per_point):
-        return lambda: pba_mega.mega_fused(model, images, cams, rho, cc,
-                                           HUBER, per_point=per_point)
+    def kernel():
+        return pba_mega.mega_fused(model, images, cams, rho, c, HUBER)
 
-    ms, plain_ms = timed_pair(kern(c, True), lambda: pba_mega.mega_fused_reference(
+    ms, plain_ms = timed_pair(kernel, lambda: pba_mega.mega_fused_reference(
         model, images, cams, rho, c, HUBER))
-    variants = {(True, True): ms}
-    for by_image in (True, False):
-        for per_point in (True, False):
-            if (by_image, per_point) not in variants:
-                variants[by_image, per_point] = graph_ms(
-                    kern(consts[by_image], per_point))
-    wrapper_ms = time_ms(kern(c, True), device)
-    print(f"  kernel {ms:.4f} ms (per point, sorted by image), plain (warp_slabs "
-          f"+ mega_rj_reference) {plain_ms:.4f} ms per build on the device "
-          f"(CUDA graphs of 20 calls, plain/kernel/kernel/plain); through "
-          f"the wrapper {wrapper_ms:.4f} ms per call (20 calls between CUDA "
-          f"events: the host's launch rate)")
-    for (by_image, per_point), t in variants.items():
-        print(f"  layout: {'per point' if per_point else 'per observation'}"
-              f", {'sorted by image' if by_image else 'problem order'}: "
-              f"{t:.4f} ms")
+    wrapper_ms = time_ms(kernel, device)
+    print(f"  kernel {ms:.4f} ms, plain (warp_slabs + mega_rj_reference) "
+          f"{plain_ms:.4f} ms per build on the device (CUDA graphs of 20 "
+          f"calls, plain/kernel/kernel/plain); through the wrapper "
+          f"{wrapper_ms:.4f} ms per call (20 calls between CUDA events: the "
+          f"host's launch rate)")
     bound_ms = mega_bound_ms(model, images, cams, rho, c)
     print(f"  bound {bound_ms:.4f} ms: the kernel at "
           f"{bound_ms / ms:.1%} of it")
@@ -464,15 +429,12 @@ def kernel_phase(pipe, device):
     refw = pba_mega.mega_fused_reference("pinhole", imgs, cw, rw, constw,
                                          HUBER)
     warpw = pba_mega.warp_slabs("pinhole", cw, rw, constw)
-    for per_point in (True, False):
-        outw = pba_mega.mega_fused("pinhole", imgs, cw, rw, constw, HUBER,
-                                   per_point=per_point)
-        torch.cuda.synchronize()
-        compare_payloads(outw, refw, imgs, f"W={imgs.shape[2]}, "
-                         f"{'per point' if per_point else 'per observation'}",
-                         warpw[:2] + warpw[3:] + (constw,))
-        check(bool((outw[:, constw.timg < 0] == 0).all()),
-              "zero columns are not zero")
+    outw = pba_mega.mega_fused("pinhole", imgs, cw, rw, constw, HUBER)
+    torch.cuda.synchronize()
+    compare_payloads(outw, refw, imgs, f"W={imgs.shape[2]}",
+                     warpw[:2] + warpw[3:] + (constw,))
+    check(bool((outw[:, constw.timg < 0] == 0).all()),
+          "zero columns are not zero")
     return max_err, ms, plain_ms, bound_ms
 
 
@@ -703,16 +665,10 @@ def sampler_phase(pipe, device, se3):
           f"value alone, no gradient (within {lib_err:.2e} of the kernel's "
           f"value); through the wrapper {wrapper_ms:.4f} ms per call (20 "
           f"calls between CUDA events: the host's launch rate)")
-    by_image = torch.argsort(img, stable=True)
-    sorted_args = (images, ux[:, by_image].contiguous(),
-                   uy[:, by_image].contiguous(), img[by_image].contiguous(),
-                   (H, W), True)
-    print(f"  the same columns sorted by image: "
-          f"{graph_ms(lambda: ps.sample_patches(*sorted_args)):.4f} ms")
     bound_ms = sample_bound_ms(images, ux, uy, img)
     print(f"  bound {bound_ms:.4f} ms: the kernel at {bound_ms / ms:.1%} "
           f"of it")
-    del out, ref, args, sorted_args
+    del out, ref, args
 
     # (b) make_kernel_fused_solver on the map in its own order, classic loop
     cfg = ba.BAConfig(max_iterations=MAX_ITERATIONS, huber_delta=HUBER)
@@ -1043,8 +999,8 @@ def hamming_resources():
 
 def mega_resources():
     """Phase 0's account of the megakernel: the registers, stack and local
-    memory (spills) of each template instance (thread mapping, camera
-    model, texel type), as ``cuobjdump`` reads them.  Reported, not
+    memory (spills) of each template instance (camera model, texel type),
+    as ``cuobjdump`` reads them.  Reported, not
     checked: a spill costs time, not correctness."""
     import re
 
@@ -1052,18 +1008,17 @@ def mega_resources():
 
     n = 0
     for fn, (usage, _) in sorted(cuobjdump_usage("pba_mega").items()):
-        tag = re.search(r"mega_(point|obs)_kernelILi(\d)E(\w+?)EEv", fn)
+        tag = re.search(r"mega_kernelILi(\d)E(\w+?)EEv", fn)
         if not tag:
             continue
         n += 1
-        texel = "bf16" if "bfloat16" in tag.group(3) else "f32"
-        print(f"  pba_mega, per {tag.group(1)}, "
-              f"{pba_mega.MODELS[int(tag.group(2))]}, {texel}: "
+        texel = "bf16" if "bfloat16" in tag.group(2) else "f32"
+        print(f"  pba_mega, {pba_mega.MODELS[int(tag.group(1))]}, {texel}: "
               f"{usage.get('REG', 'not read')} registers, stack "
               f"{usage.get('STACK', 'not read')} B, local "
               f"{usage.get('LOCAL', 'not read')} B")
-    check(n == 2 * 2 * len(pba_mega.MODELS),
-          f"{n} megakernel instances read, expected 16")
+    check(n == 2 * len(pba_mega.MODELS),
+          f"{n} megakernel instances read, expected {2 * len(pba_mega.MODELS)}")
 
 
 def mma_rates(device) -> dict:

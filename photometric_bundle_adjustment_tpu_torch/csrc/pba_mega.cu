@@ -38,19 +38,18 @@
 // observation) for the kernel to read back.
 //
 // What the design does about it: the warp stays in registers, so the only
-// device traffic is the static columns, the taps and the payload.  Two
-// thread mappings, both with every store of a payload row a coalesced
-// 128 B line of 32 neighbouring observations:
-//   * per point (the default): a block of 8 warps over 32 observations,
-//     warp p computing patch point p of each.  2,048 threads an SM can be
-//     resident, so many loads are in flight; the per-observation sums
-//     (|r|^2, then A0 and A1) are reduced over the 8 warps through 36 KB of
-//     shared memory in a fixed order;
-//   * per observation: one thread per observation, the 8 points in a loop
-//     (the projection is recomputed in a second pass so as not to hold 8
-//     points' coefficients in registers).
-// The TPU's window clamp, split-bf16 panels, tile codes and image groups
-// have no counterpart here.
+// device traffic is the static columns, the taps and the payload.  A block
+// of 8 warps covers 32 observations, warp p computing patch point p of
+// each: every store of a payload row is a coalesced 128 B line of 32
+// neighbouring observations, 54 to 63 registers a thread let 2,048
+// threads an SM be resident, so many loads are in flight, and the 8 points
+// of an observation share their block's L1 lines.  The per-observation
+// sums (|r|^2, then A0 and A1) are reduced over the 8 warps through 36 KB
+// of shared memory, in point order.  One thread per observation, the 8
+// points in a loop, needed 151 to 176 registers and took 0.0301 ms against
+// this mapping's 0.0225 on the EuRoC-scale map (H100, chip_smoke.py).  The
+// TPU's window clamp, split-bf16 panels, tile codes and image groups have
+// no counterpart here.
 //
 // Numerics: nvcc contracts a*b + c into FMAs by default, so results differ
 // from the plain PyTorch version (ops/pba_mega.py mega_fused_reference:
@@ -76,8 +75,7 @@ constexpr int ROW_RSW = 136;
 constexpr int ROW_COST = 144;
 constexpr int ROW_A0 = 145;
 constexpr int ROW_PAD = 179;
-constexpr int OBS = 32;       // observations per block, per-point mapping
-constexpr int THREADS = 256;  // threads per block, per-observation mapping
+constexpr int OBS = 32;       // observations per block
 
 enum Model { kPinhole = 0, kEucm = 1, kDs = 2, kKb4 = 3 };
 
@@ -338,11 +336,11 @@ __device__ __forceinline__ float jac_col(int c, const float jg[NGEO],
   return jg[12] * sw;
 }
 
-// Per-point mapping: block (32, 8), thread (lane, p) computes point p of
-// observation blockIdx.x * 32 + lane.
+// Block (32, 8): thread (lane, p) computes point p of observation
+// blockIdx.x * 32 + lane.
 template <int MODEL, typename T>
 __global__ void __launch_bounds__(OBS * P)
-mega_point_kernel(const T* __restrict__ images, Inputs a) {
+mega_kernel(const T* __restrict__ images, Inputs a) {
   __shared__ float r2s[P][OBS];
   __shared__ float red[P][2 * NCOL][OBS];
   const int lane = threadIdx.x;
@@ -403,89 +401,23 @@ mega_point_kernel(const T* __restrict__ images, Inputs a) {
   }
 }
 
-// Per-observation mapping: one thread per observation, the points in a
-// loop; the projection is evaluated twice (residual pass, Jacobian pass).
-template <int MODEL, typename T>
-__global__ void __launch_bounds__(THREADS)
-mega_obs_kernel(const T* __restrict__ images, Inputs a) {
-  const size_t N = a.N;
-  const size_t o = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (o >= N) return;
-  if (__ldg(a.cols + 3 * N + o) < 0) {
-#pragma unroll 8
-    for (int row = 0; row < OUT_ROWS; ++row) a.out[row * N + o] = 0.0f;
-    return;
-  }
-  Obs s;
-  load_obs(a, o, s);
-  const T* img = images + (size_t)s.img * a.H * a.W;
-  const float xmax = (float)(a.W - 1.001), ymax = (float)(a.H - 1.001);
-
-  float gx[P], gy[P], r[P], r2 = 0.0f;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float ux, uy, GA[NGEO], GB[NGEO], val;
-    warp_point<MODEL>(a, s, o, p, ux, uy, GA, GB);
-    sample(img, a.W, xmax, ymax, ux, uy, val, gx[p], gy[p]);
-    const float rp = (val - s.b_t) - s.e * (__ldg(a.refp + p * N + o) - s.b_r);
-    r[p] = ux > -1e5f ? rp : NAN;
-    r2 += r[p] * r[p];
-  }
-  float sw, cost;
-  robust(r2, a.huber_delta, sw, cost);
-  a.out[ROW_COST * N + o] = cost;
-
-  float acc[2 * NCOL];
-#pragma unroll
-  for (int k = 0; k < 2 * NCOL; ++k) acc[k] = 0.0f;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float ux, uy, GA[NGEO], GB[NGEO], jg[NGEO];
-    warp_point<MODEL>(a, s, o, p, ux, uy, GA, GB);
-#pragma unroll
-    for (int k = 0; k < NGEO; ++k) jg[k] = gx[p] * GA[k] + gy[p] * GB[k];
-    const float ref = __ldg(a.refp + p * N + o) - s.b_r;
-    const float rsw = r[p] * sw;
-    const float jrho = jg[12] * sw;
-    a.out[(ROW_RSW + p) * N + o] = rsw;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const float b = jac_col(c, jg, s.e, ref, sw);
-      a.out[(p * NCOL + c) * N + o] = b;
-      acc[c] += b * jrho;
-      acc[NCOL + c] += b * rsw;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 2 * NCOL; ++k) a.out[(ROW_A0 + k) * N + o] = acc[k];
-#pragma unroll
-  for (int row = ROW_PAD; row < OUT_ROWS; ++row) a.out[row * N + o] = 0.0f;
-}
-
 static_assert(ROW_A0 + 2 * NCOL == ROW_PAD, "A0 and A1 end at the zero rows");
 
 template <int MODEL, typename T>
-int launch(bool per_point, const T* images, const Inputs& a,
-           cudaStream_t stream) {
-  if (per_point) {
-    const unsigned blocks = (unsigned)((a.N + OBS - 1) / OBS);
-    mega_point_kernel<MODEL, T><<<blocks, dim3(OBS, P), 0, stream>>>(images,
-                                                                      a);
-  } else {
-    const unsigned blocks = (unsigned)((a.N + THREADS - 1) / THREADS);
-    mega_obs_kernel<MODEL, T><<<blocks, THREADS, 0, stream>>>(images, a);
-  }
+int launch(const T* images, const Inputs& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.N + OBS - 1) / OBS);
+  mega_kernel<MODEL, T><<<blocks, dim3(OBS, P), 0, stream>>>(images, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_model(int model, bool per_point, const T* images,
-                 const Inputs& a, cudaStream_t stream) {
+int launch_model(int model, const T* images, const Inputs& a,
+                 cudaStream_t stream) {
   switch (model) {
-    case kPinhole: return launch<kPinhole>(per_point, images, a, stream);
-    case kEucm: return launch<kEucm>(per_point, images, a, stream);
-    case kDs: return launch<kDs>(per_point, images, a, stream);
-    case kKb4: return launch<kKb4>(per_point, images, a, stream);
+    case kPinhole: return launch<kPinhole>(images, a, stream);
+    case kEucm: return launch<kEucm>(images, a, stream);
+    case kDs: return launch<kDs>(images, a, stream);
+    case kKb4: return launch<kKb4>(images, a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -494,14 +426,13 @@ int launch_model(int model, bool per_point, const T* images,
 
 // Launches the megakernel on `stream` (a cudaStream_t passed as a pointer).
 // model: 0 pinhole, 1 eucm, 2 ds, 3 kb4; bf16: the image stack is
-// (Kimg, H, W) bf16, else f32; per_point: the per-point thread mapping,
-// else one thread per observation.  Every index in cols must be in range
+// (Kimg, H, W) bf16, else f32.  Every index in cols must be in range
 // (the camera of pose/affine, the landmark of inv_depth, the image of the
 // stack, or a negative image for a zero column).  Returns
 // cudaGetLastError() after the launch (0 on success).
-extern "C" int pba_mega_fused(int model, int bf16, int per_point,
-                              const void* images, int H, int W,
-                              const float* pose, const float* affine,
+extern "C" int pba_mega_fused(int model, int bf16, const void* images,
+                              int H, int W, const float* pose,
+                              const float* affine,
                               const float* inv_depth, const int* cols,
                               const float* d3, const float* intr,
                               const float* refp, int N, float huber_delta,
@@ -510,10 +441,8 @@ extern "C" int pba_mega_fused(int model, int bf16, int per_point,
   const Inputs a{pose, affine, inv_depth, cols, d3, intr, refp,
                  H, W, (size_t)N, huber_delta, out};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_model(model, per_point != 0,
-                        (const __nv_bfloat16*)images, a, s);
-  return launch_model(model, per_point != 0, (const float*)images, a, s);
+  if (bf16) return launch_model(model, (const __nv_bfloat16*)images, a, s);
+  return launch_model(model, (const float*)images, a, s);
 }
 
 extern "C" const char* pba_cuda_error_string(int err) {

@@ -143,12 +143,13 @@ def _numpy(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def build_chunk_mega_plan(problem: ba.BAProblem, by_image: bool = True):
+def build_chunk_mega_plan(problem: ba.BAProblem):
     """Chunk-plan layout for a ragged photometric problem (host, numpy).
 
-    The kernel's columns are the valid observations, sorted by target
-    image (stable) with ``by_image``, else in the problem's order, and
-    one zero column after them, which the plans' dummy entries gather.
+    The kernel's columns are the valid observations sorted by target image
+    (stable: an image's taps are then read by neighbouring blocks; the
+    problem's own order measured the same on the card), and one zero
+    column after them, which the plans' dummy entries gather.
     The chunked segment-sum plans of ``build_schur_plan`` are built on
     those columns, with exact chunk counts (no power-of-two padding:
     PyTorch compiles nothing per shape).  Returns ``(cplan, rows)``:
@@ -159,9 +160,8 @@ def build_chunk_mega_plan(problem: ba.BAProblem, by_image: bool = True):
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
     vidx = np.flatnonzero(_numpy(o.valid) != 0)
-    if by_image:
-        timg = _numpy(o.aux.target_img)
-        vidx = vidx[np.argsort(timg[vidx], kind="stable")]
+    timg = _numpy(o.aux.target_img)
+    vidx = vidx[np.argsort(timg[vidx], kind="stable")]
     cplan = build_schur_plan(
         _numpy(o.anchor_cam)[vidx], _numpy(o.target_cam)[vidx],
         _numpy(o.landmark)[vidx], K, L, pair_chunk=PAIR_CHUNK,
@@ -381,7 +381,7 @@ def _lib():
     lib = _build.load("pba_mega")
     if lib.pba_mega_fused.argtypes is None:
         lib.pba_mega_fused.argtypes = (
-            [ctypes.c_int] * 3                               # model, bf16, map
+            [ctypes.c_int] * 2                               # model, bf16
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # images, H, W
             + [ctypes.c_void_p] * 7      # pose, affine, rho, cols, d3, intr, refp
             + [ctypes.c_int, ctypes.c_float]                 # N, huber
@@ -429,17 +429,16 @@ def _check_kernel_inputs(model, images, cam_states, inv_depth,
 
 
 def mega_fused(model: str, images, cam_states, inv_depth,
-               consts: MegaConsts, huber_delta: float,
-               per_point: bool = True):
+               consts: MegaConsts, huber_delta: float):
     """The megakernel payload (184, N) of the columns of ``consts`` at the
     state (``cam_states``: pose (K, 7), affine (K, 2); ``inv_depth``
     (L,)), sampling the (Kimg, H, W) f32 or bf16 ``images``.
 
     On CUDA tensors it launches the kernel of ``csrc/pba_mega.cu`` on the
     current stream (or raises): the f32 tier for an f32 stack, the bf16
-    tier for a bf16 one; ``per_point`` picks its thread mapping (a warp
-    per patch point, else a thread per observation).  On CPU tensors it
-    runs the plain version, ``mega_fused_reference``.  Indices in
+    tier for a bf16 one; the state tensors are made contiguous, the rest
+    must be.  On CPU tensors it runs the plain version,
+    ``mega_fused_reference``.  Indices in
     ``consts`` are trusted to be in range (``make_mega_consts`` makes them
     from the problem)."""
     global KERNEL_LAUNCHES, KERNEL_LAUNCHES_BF16
@@ -460,7 +459,7 @@ def mega_fused(model: str, images, cam_states, inv_depth,
                       device=images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     err = lib.pba_mega_fused(
-        MODELS.index(model), int(bf16), int(per_point), images.data_ptr(),
+        MODELS.index(model), int(bf16), images.data_ptr(),
         H, W, cam_states.pose.data_ptr(), cam_states.affine.data_ptr(),
         inv_depth.data_ptr(), consts.cols.data_ptr(), consts.d3.data_ptr(),
         consts.intr_t.data_ptr(), consts.refp.data_ptr(), N,

@@ -109,13 +109,13 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
 
 
 def tree_sum(values: torch.Tensor, tree: SegmentTree) -> torch.Tensor:
-    """values (N, ...) summed into the output rows of ``tree`` (R, ...) in
-    the tree's fixed order: gathers and sums over a chunk axis, no
+    """values (N, D) summed into the output rows of ``tree`` (R, D) in the
+    tree's fixed order: gathers and sums over a chunk axis, no
     scatter-add, so the result repeats bit for bit on the card."""
-    zero = values.new_zeros((1,) + tuple(values.shape[1:]))
-    for g in tree.levels:
-        values = torch.cat([values, zero])[g].sum(dim=1)
-    return torch.cat([values, zero])[tree.pick]
+    values = torch.cat([values, values.new_zeros((1, values.shape[1]))])
+    for single, multi in tree.levels:
+        values = torch.cat([values[single], values[multi].sum(dim=1)])
+    return values[tree.pick]
 
 
 def _chunk_sum(payload: torch.Tensor, plan: ChunkPlan, n_rows: int):

@@ -49,29 +49,41 @@ import numpy as np
 
 class SegmentTree(NamedTuple):
     """A sum of value rows into output rows in a fixed order, without a
-    scatter: each level gathers rows of the previous level's values (index
-    N_prev = an appended zero row) in chunks of B and sums each chunk; then
-    ``pick`` gathers each output row from the last level (its zero row where
-    nothing lands).  Every chunk of a level touches one output row, so the
-    levels end once no output row has two values left."""
+    scatter.  Each level is a pair (single, multi) of indices into the
+    previous level's rows (index N_prev names its zero row): the rows of
+    an output row with one value left are gathered as they are
+    (``single``); the others are summed in chunks of B (``multi``), whose
+    last chunk is all N_prev, so that the level's last row is zero.  Then
+    ``pick`` gathers each output row from the last level (its zero row
+    where nothing lands).  Every chunk touches one output row, so the
+    levels end once no output row has two values left; a row with one
+    value is never padded to B."""
 
-    levels: tuple     # of (NC_i, B) int64 into the previous level's rows
+    levels: tuple     # of (single (NS_i,), multi (NM_i + 1, B)) int64
     pick: np.ndarray  # (R,) int64 into the last level's rows; N_last = zero
 
 
 def build_segment_tree(ids, n_out: int, B: int = 16) -> SegmentTree:
     """The ``SegmentTree`` that sums value row i into output row ``ids[i]``;
     ids outside [0, n_out) are dropped.  Values are summed in index order
-    within a chunk and chunks in the order ``_chunk_segments`` gives."""
+    within a chunk and chunks in the order ``_chunk_segments`` gives.  The
+    values get one zero row appended (index ``len(ids)``) before the first
+    level."""
     ids = np.asarray(ids, np.int64).reshape(-1)
     pos = np.flatnonzero((ids >= 0) & (ids < n_out))
     rid = ids[pos]
     n_prev = ids.size
     levels = []
     while rid.size and np.unique(rid).size < rid.size:
-        g, r = _chunk_segments(rid, B)
-        levels.append(np.where(g >= 0, pos[np.clip(g, 0, None)], n_prev))
-        n_prev, pos, rid = r.size, np.arange(r.size), r
+        count = np.bincount(rid, minlength=n_out)
+        one = count[rid] == 1
+        g, r = _chunk_segments(rid[~one], B)
+        multi = np.where(g >= 0, pos[~one][np.clip(g, 0, None)], n_prev)
+        levels.append((pos[one], np.concatenate([multi,
+                                                 np.full((1, B), n_prev)])))
+        rid = np.r_[rid[one], r]
+        n_prev = rid.size
+        pos = np.arange(n_prev)
     pick = np.full(n_out, n_prev, np.int64)
     pick[rid] = pos
     return SegmentTree(levels=tuple(levels), pick=pick)

@@ -2,11 +2,11 @@
 their plain PyTorch versions, and their wrappers' guards; the front end
 and the photometric solvers on the card against the CPU plain path, and
 builds that repeat bit for bit.  Marked ``cuda``; each test skips where no
-CUDA device is present.  The megakernel (every camera model, both tiers,
-both thread mappings) and the patch sampler contract a*b + c into FMAs
-and the plain versions do not, so they agree to about one ulp per
-operation: atol 1e-4 * max|ref| (per row block for the megakernel).  The Hamming kernel is integer arithmetic and the window
-read a copy: both must be bit-identical.  The grid probe's output must be
+CUDA device is present.  The megakernel (every camera model, both tiers)
+and the patch sampler contract a*b + c into FMAs and the plain versions
+do not, so they agree to about one ulp per operation: atol 1e-4 * max|ref|
+(per row block for the megakernel).  The Hamming kernel is integer
+arithmetic and the window read a copy: both must be bit-identical.  The grid probe's output must be
 exactly zero and its checksums agree within rtol 1e-5 (the order of the
 sums differs).
 
@@ -91,10 +91,10 @@ def _assert_matches(out, ref):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("model", pba_mega.MODELS)
 def test_fused_kernel_matches_plain_version(cuda, model, bf16):
-    """Both thread mappings against ``mega_fused_reference`` on the same
-    inputs (the bf16 tier against the plain version on the widened
-    stack), with off-image, behind-camera and non-finite observations and
-    a zero column; each launch counted in its tier's counter."""
+    """The kernel against ``mega_fused_reference`` on the same inputs (the
+    bf16 tier against the plain version on the widened stack), with
+    off-image, behind-camera and non-finite observations and a zero
+    column; each launch counted in its tier's counter."""
     images, cams, rho, consts = _mega_inputs(cuda, model)
     if bf16:
         images = images.to(torch.bfloat16)
@@ -102,16 +102,14 @@ def test_fused_kernel_matches_plain_version(cuda, model, bf16):
                                         consts, 9.0)
     nan = torch.isnan(ref[pba_mega.ROW_COST])
     assert 0 < int(nan.sum()) < nan.numel() // 2
-    for per_point in (True, False):
-        before = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
-        out = pba_mega.mega_fused(model, images, cams, rho, consts, 9.0,
-                                  per_point=per_point)
-        torch.cuda.synchronize()
-        after = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
-        assert after == ((before[0], before[1] + 1) if bf16
-                         else (before[0] + 1, before[1]))
-        _assert_matches(out, ref)
-        assert (out[:, consts.timg < 0] == 0).all()
+    before = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
+    out = pba_mega.mega_fused(model, images, cams, rho, consts, 9.0)
+    torch.cuda.synchronize()
+    after = (pba_mega.KERNEL_LAUNCHES, pba_mega.KERNEL_LAUNCHES_BF16)
+    assert after == ((before[0], before[1] + 1) if bf16
+                     else (before[0] + 1, before[1]))
+    _assert_matches(out, ref)
+    assert (out[:, consts.timg < 0] == 0).all()
     if bf16:
         # the tier is on: rounding the stack moves the payload
         out32 = pba_mega.mega_fused(model, images.float(), cams, rho, consts,
@@ -121,15 +119,13 @@ def test_fused_kernel_matches_plain_version(cuda, model, bf16):
 
 def test_fused_kernel_wide_image(cuda):
     """W=8448, wider than the TPU kernel's 14-bit column field, through
-    the pinhole toy state: both mappings against the plain version."""
+    the pinhole toy state, against the plain version."""
     images, cams, rho, consts, _ = synthetic.wide_image_state(device=cuda)
     ref = pba_mega.mega_fused_reference("pinhole", images, cams, rho, consts,
                                         0.0)
-    for per_point in (True, False):
-        out = pba_mega.mega_fused("pinhole", images, cams, rho, consts, 0.0,
-                                  per_point=per_point)
-        _assert_matches(out, ref)
-        assert (out[:, consts.timg < 0] == 0).all()
+    out = pba_mega.mega_fused("pinhole", images, cams, rho, consts, 0.0)
+    _assert_matches(out, ref)
+    assert (out[:, consts.timg < 0] == 0).all()
 
 
 def test_fused_kernel_squared_loss(cuda):
