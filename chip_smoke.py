@@ -66,8 +66,10 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      map, checking the cost at every level and the pose error;
   6. the probes: every variant of the grid-overhead probe
      (``scripts.grid_overhead.run``: 11 variants, each against its plain
-     version and timed on the device, printed beside the output-only
-     variant) and the window read (``scripts.exp_roll``: the script's call
+     version, two calls bit-equal, timed on the device and printed beside
+     the output-only variant and its bound, with the smallest share of a
+     bound and one ``torch.zeros`` of the output as the output-only
+     floor) and the window read (``scripts.exp_roll``: the script's call
      at B = 1, then B = 4,096 tiles in each mode, bit for bit against the
      plain version, timed beside one ``torch.roll``).
 
@@ -869,28 +871,33 @@ def probe_phase(device):
     )
 
     print("phase 6: the grid-overhead probe (11 variants: device ms, plain "
-          "ms, bound)")
+          "ms, bound, share of the bound; two calls bit-equal)")
     reset_counts()
     rows = go.run(device, log=lambda line: print("  " + line))
     go_launches = go.KERNEL_LAUNCHES
     base = rows[0]["ms"]
     for r in rows:
         extra = "" if r is rows[0] else f", {r['ms'] - base:+.4f} ms"
-        print(f"  {r['ms']:.4f} ms{extra} beside the output-only variant: "
-              f"{r['label']}")
+        print(f"  {r['ms']:.4f} ms{extra} beside the output-only variant, "
+              f"{r['share']:.1%} of its bound: {r['label']}")
+    low = min(rows, key=lambda r: r["share"])
+    print(f"  smallest share of the bound: {low['share']:.1%} "
+          f"({low['label']})")
     scratch = next(r for r in rows if "scratch_bytes" in r)
     print(f"  the scratch variant reserves {scratch['scratch_bytes']} B of "
           f"dynamic shared memory per block")
     ng_cols = go.NG * go.GROUP
-    library_ms = graph_ms(lambda: torch.zeros((go.OUT_ROWS, ng_cols),
-                                              device=device))
-    print(f"  one torch.zeros of the output: {library_ms:.4f} ms")
+    zeros_ms = graph_ms(lambda: torch.zeros((go.OUT_ROWS, ng_cols),
+                                            device=device))
+    print(f"  output-only floor, one torch.zeros of the output: "
+          f"{zeros_ms:.4f} ms (beside {base:.4f} ms for grid+out only)")
     entry = next(r for r in rows
                  if r["label"] == f"3 prefetch ({ng_cols} code), no scratch")
+    # no single PyTorch call computes the zeros and the checksums
     grid = dict(launches=go_launches, max_abs_err=entry["max_abs_err"],
                 ms=entry["ms"], plain_ms=entry["plain_ms"],
                 bound_ms=entry["bound_ms"], bound_by="bytes",
-                library_ms=library_ms)
+                library_ms=None)
 
     print("  window read: the script's call, B = 1")
     reset_counts()
@@ -1342,7 +1349,7 @@ def main() -> int:
         "name": "grid_overhead",
         "route": "cuda",
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/grid_overhead.cu",
-        "replaces": "scripts/grid_overhead.py:48",
+        "replaces": "scripts/grid_overhead.py:48,101,133",
         **grid,
     }, {
         "name": "exp_roll",

@@ -7,8 +7,8 @@ and the patch sampler contract a*b + c into FMAs and the plain versions
 do not, so they agree to about one ulp per operation: atol 1e-4 * max|ref|
 (per row block for the megakernel).  The Hamming kernel is integer
 arithmetic and the window read a copy: both must be bit-identical.  The grid probe's output must be
-exactly zero and its checksums agree within rtol 1e-5 (the order of the
-sums differs).
+exactly zero and its checksums agree within rtol 1e-5 (its inputs are
+small integers, so the sums are in fact exact), two calls bit-equal.
 
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
@@ -454,6 +454,78 @@ def test_grid_probe_matches_plain_version(cuda, index):
     assert go.KERNEL_LAUNCHES == before + 1
     _, ref = go.probe_reference(**args)
     assert go.check(out, checksum, ref, v.label) <= 1e-5
+
+
+# (ng, iog, lane inputs, image stack (kimg, H, W) or None, code entries per
+# step): irregular image indices, H*W not a multiple of the kernel's slice
+GRID_PATTERNS = {
+    "repeats-ng7": (7, [5, 0, 5, 2, 0, 6, 5], 7, (8, 130, 128), 3),
+    "runs-ng160": (160, [g * 40 // 160 for g in range(160)], 7, (164, 8, 16),
+                   256),
+    "constant-ng160-no-lanes": (160, [3] * 160, 0, (164, 130, 128), 0),
+    "distinct-ng160": (160, [(7 * g) % 164 for g in range(160)], 2,
+                       (164, 130, 128), 0),
+    "no-image-ng7": (7, [1, 1, 0, 4, 2, 2, 9], 2, None, 1),
+    "nothing-ng7": (7, [0, 3, 3, 3, 1, 0, 2], 0, None, 0),
+}
+
+
+def _grid_pattern(device, name):
+    ng, iog, n_lanes, shape, per_step = GRID_PATTERNS[name]
+    rng = np.random.default_rng(11)
+
+    def ints(*s, hi=4, dtype=np.float32):
+        return torch.as_tensor(rng.integers(0, hi, s).astype(dtype),
+                               device=device)
+
+    args = dict(lanes=[ints(r, ng * go.GROUP)
+                       for r in go.LANE_ROWS[:n_lanes]],
+                iog=torch.tensor(iog, dtype=torch.int32, device=device),
+                images=None if shape is None else ints(*shape))
+    if per_step:
+        args.update(cnt=ints(ng, hi=300, dtype=np.int32),
+                    code=ints(ng * per_step, hi=5, dtype=np.int32))
+    return args
+
+
+@pytest.mark.parametrize("name", GRID_PATTERNS)
+def test_grid_probe_irregular_patterns(cuda, name):
+    args = _grid_pattern(cuda, name)
+    before = go.KERNEL_LAUNCHES
+    out, checksum = go.probe(**args)
+    again = go.probe(**args)[1]
+    torch.cuda.synchronize()
+    assert go.KERNEL_LAUNCHES == before + 2
+    _, ref = go.probe_reference(**args)
+    assert go.check(out, checksum, ref, name) == 0
+    assert torch.equal(checksum, again)
+
+
+def test_grid_probe_index_outside_the_stack_is_nan(cuda):
+    args = _grid_pattern(cuda, "repeats-ng7")
+    args["iog"][3] = args["images"].shape[0]
+    checksum = go.probe(**args)[1].cpu()
+    assert torch.isnan(checksum[3]) and torch.isfinite(checksum[:3]).all()
+    args["iog"][3] = 2
+    _, ref = go.probe_reference(**args)
+    assert torch.equal(checksum[4:], ref[4:].cpu())
+
+
+def test_grid_probe_replays_in_a_cuda_graph(cuda):
+    # the kernel's ticket resets itself: every replay sums anew
+    args = _grid_pattern(cuda, "runs-ng160")
+    go.probe(**args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, checksum = go.probe(**args)
+    _, ref = go.probe_reference(**args)
+    for _ in range(3):
+        out.fill_(1.0)
+        checksum.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert go.check(out, checksum, ref, "replay") == 0
 
 
 @pytest.mark.parametrize("mode", exp_roll.MODES)

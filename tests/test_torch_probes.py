@@ -2,9 +2,10 @@
 grid-overhead probe (``scripts/grid_overhead.py``) and the windowed read
 at a run-time lane shift (``scripts/exp_roll.py``), their plain versions
 on the CPU against numpy and, for the window read, against the Pallas
-kernel run in interpret mode.  Everything here is exact: the probe's
-inputs are small integers, so its checksums are exact f32 sums, and a
-window is a copy.
+kernel run in interpret mode; the grid probe kernel's work plan and its
+numpy emulation against the plain version.  Everything here is exact: the
+probe's inputs are small integers, so its checksums are exact f32 sums,
+and a window is a copy.
 
 The Pallas kernel is built here from the script's kernel body, since
 importing the script runs it.  Its ``rollstatic`` mode cannot run in
@@ -65,6 +66,120 @@ def test_grid_probe_plain_version(probe_inputs, index):
     np.testing.assert_array_equal(checksum.numpy(), want)
     go.check(out, checksum, torch.as_tensor(want, dtype=torch.float32),
              v.label)
+
+
+# (ng, iog, lane inputs, image stack (kimg, H, W) or None, code entries per
+# step, SMs): irregular image indices, a grid smaller than the units, H*W
+# not a multiple of the slice (130 * 128 = 16,640 floats: two slices)
+PLAN_CASES = {
+    "repeats-ng7": (7, [5, 0, 5, 2, 0, 6, 5], 7, (8, 130, 128), 3, 132),
+    "repeats-ng7-3sm": (7, [5, 0, 5, 2, 0, 6, 5], 7, (8, 130, 128), 3, 3),
+    "runs-ng160": (160, [g * 40 // 160 for g in range(160)], 7, (164, 8, 16),
+                   256, 132),
+    "constant-ng160-no-lanes": (160, [3] * 160, 0, (164, 130, 128), 0, 132),
+    "distinct-ng160": (160, [(7 * g) % 164 for g in range(160)], 2,
+                       (164, 130, 128), 0, 132),
+    "no-image-ng7": (7, [1, 1, 0, 4, 2, 2, 9], 2, None, 1, 5),
+    "nothing-ng7": (7, [0, 3, 3, 3, 1, 0, 2], 0, None, 0, 132),
+}
+
+
+def _plan_case(name):
+    """The case's plan, numpy inputs for ``emulate`` and ``probe`` args."""
+    ng, iog, n_lanes, shape, per_step, n_sm = PLAN_CASES[name]
+    rng = np.random.default_rng(11)
+
+    def ints(*s, hi=4):
+        return rng.integers(0, hi, s).astype(np.float32)
+
+    lanes = [ints(r, ng * go.GROUP) for r in go.LANE_ROWS[:n_lanes]]
+    images = None if shape is None else ints(*shape)
+    cnt = code = None
+    if per_step:
+        cnt = rng.integers(0, 300, ng).astype(np.int32)
+        code = rng.integers(0, 5, ng * per_step).astype(np.int32)
+    iog = np.asarray(iog, np.int32)
+    p = go.plan(ng, tuple(x.shape[0] for x in lanes),
+                0 if images is None else shape[0],
+                0 if images is None else shape[1] * shape[2], n_sm,
+                0 if code is None else code.size)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(a)
+
+    args = dict(lanes=[t(x) for x in lanes], iog=t(iog), images=t(images),
+                cnt=t(cnt), code=t(code))
+    return p, (lanes, iog, images, cnt, code), args
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_plan_covers_each_element_once(name):
+    p, (lanes, iog, images, cnt, code), _ = _plan_case(name)
+    assert p.n_out % p.grid == 0 and p.out_tile4 <= go.UNIT4
+    assert p.chunk_rows * go.GROUP // 4 <= go.UNIT4
+    assert p.slice_elems <= 4 * go.UNIT4 and p.slice_elems % 4 == 0
+    _, _, reads = go.emulate(p, lanes, iog, images, cnt, code)
+    assert (reads["out"] == 1).all()
+    for r in reads["lanes"]:
+        assert (r == 1).all()
+    if code is not None:
+        assert (reads["code"] == 1).all()
+    if images is not None:
+        used = np.zeros(images.shape[0], bool)
+        used[iog] = True
+        img = reads["images"]
+        assert (img[used] == 1).all() and (img[~used] == 0).all()
+        # slots: every step's lane units, then each distinct image's slices
+        assert p.n_slots >= p.img_slot0 + used.sum() * p.n_slices
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_emulation_matches_plain_version(name):
+    p, np_args, args = _plan_case(name)
+    out, checksum, _ = go.emulate(p, *np_args)
+    ref_out, ref = go.probe_reference(**args)
+    np.testing.assert_array_equal(out, ref_out.numpy())
+    np.testing.assert_array_equal(checksum, ref.numpy())
+
+
+@pytest.mark.parametrize("index", range(len(VARIANTS)),
+                         ids=[v.label for v in VARIANTS])
+def test_emulation_matches_variants(probe_inputs, index):
+    v = VARIANTS[index]
+    lanes, images = probe_inputs
+    args = go.variant_args(v, lanes, images)
+    p = go.plan(go.NG, tuple(x.shape[0] for x in args["lanes"]),
+                images.shape[0], images[0].numel() if v.image else 0, 132,
+                v.code_len)
+
+    def a(key):
+        return None if args.get(key) is None else args[key].numpy()
+
+    out, checksum, _ = go.emulate(p, [x.numpy() for x in args["lanes"]],
+                                  np.asarray(v.iog), a("images"), a("cnt"),
+                                  a("code"))
+    _, ref = go.probe_reference(**args)
+    assert (out == 0).all()
+    np.testing.assert_array_equal(checksum, ref.numpy())
+
+
+def test_emulation_marks_an_index_outside_the_stack():
+    # the kernel reads no image for it and gives that step a NaN checksum
+    p, (lanes, iog, images, cnt, code), _ = _plan_case("repeats-ng7")
+    iog = iog.copy()
+    iog[3] = images.shape[0]
+    _, checksum, reads = go.emulate(p, lanes, iog, images, cnt, code)
+    assert np.isnan(checksum[3]) and np.isfinite(np.delete(checksum, 3)).all()
+    assert reads["images"].max() == 1
+
+
+def test_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        go.plan(7, (), go.MAX_IMAGES + 1, 16, 132)
+    with pytest.raises(ValueError):
+        go.plan(7, (), 4, 18, 132)
+    with pytest.raises(ValueError):
+        go.plan(7, (), 0, 0, 132, code_len=8)
 
 
 @pytest.mark.parametrize("mode", exp_roll.MODES)
