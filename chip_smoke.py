@@ -71,7 +71,25 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      bound and one ``torch.zeros`` of the output as the output-only
      floor) and the window read (``scripts.exp_roll``: the script's call
      at B = 1, then B = 4,096 tiles in each mode, bit for bit against the
-     plain version, timed beside one ``torch.roll``).
+     plain version, timed beside one ``torch.roll``);
+  7. geometric bundle adjustment, which has no kernel of its own (the JAX
+     package computes it in XLA): (a) bench.py's workload at full size
+     (``synth_ba_problem``: pinhole, 200 cameras, 8,192 landmarks, 6
+     observations each, 0.3 px noise, f32), two first builds bit-equal in
+     the dense and chunk families of ``ops/geo_mega.make_geo_solver``,
+     20 iterations of each and of ``bundle_adjustment`` (the cost falls,
+     pose and inverse-depth errors shrink, the three final costs agree),
+     and bench.py's fixed LM step timed with CUDA events, printed as
+     ``geo_lm_iters_per_s`` beside the card line; (b) the real EuRoC V1
+     map of ``runs/map_r5_run20.pkl`` through ``SfmPipeline.from_map``,
+     which must take the chunk branch, solved in f32 on the card and in
+     f64 on the CPU, as saved and with its free poses and inverse depths
+     perturbed from a seed (the card within 1% of the CPU; the perturbed
+     cost halves at least), with the reprojection RMS and the cam-0
+     position RMSE against the reference run's map before and after;
+     (c) ``entry()``, the non-fused photometric ``make_solver`` and
+     ``lm_solve`` on the SE3 fit of the reference's test, on the card.
+     No kernel of the port launches in this phase.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
@@ -139,6 +157,16 @@ SAMPLE_ATOL = 1e-4      # times max|image|
 NEQ_TOL = (2e-4, 3e-3, 2e-3)
 NEQ_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "H_pp", "g_c", "g_p", "M",
              "inv0"]
+
+# phase 7: geometric BA.  bench.py's workload: 20 iterations of each
+# family and of bundle_adjustment, whose final costs agree to GEO_COST_RTOL
+# (one f32 problem, three orders of summation); the fixed step timed over
+# GEO_STEPS chained steps.  The real map: the card's f32 solve within
+# MAP_COST_RTOL of the CPU's f64 solve, as saved and perturbed (free poses
+# by MAP_POSE_NOISE tangent noise, inverse depths by MAP_DEPTH_NOISE).
+GEO_ITERATIONS, GEO_COST_RTOL, GEO_STEPS = 20, 1e-3, 50
+MAP_ITERATIONS, MAP_COST_RTOL = 20, 1e-2
+MAP_POSE_NOISE, MAP_DEPTH_NOISE, SEED_MAP = 2e-3, 1e-2, 0
 
 # the front end at EuRoC V1's size (bench.py's 82 stereo frames)
 FRONT_FRAMES, FRONT_H, FRONT_W = 82, 480, 752
@@ -1272,6 +1300,336 @@ def front_end_phase(device, b1_rate):
                 library_ms=library_ms)
 
 
+def kernel_counts() -> dict:
+    """Every kernel's launch count."""
+    from photometric_bundle_adjustment_tpu_torch.ops import (
+        hamming,
+        patch_sample,
+        pba_mega,
+    )
+    from photometric_bundle_adjustment_tpu_torch.scripts import (
+        exp_roll,
+        grid_overhead,
+    )
+
+    return {"pba_mega": pba_mega.KERNEL_LAUNCHES,
+            "pba_mega_bf16": pba_mega.KERNEL_LAUNCHES_BF16,
+            "hamming": hamming.KERNEL_LAUNCHES,
+            "patch_sample": patch_sample.KERNEL_LAUNCHES,
+            "grid_overhead": grid_overhead.KERNEL_LAUNCHES,
+            "exp_roll": exp_roll.KERNEL_LAUNCHES}
+
+
+def geo_errors(problem, poses_gt, rho_gt, se3):
+    """Mean translation (m) and rotation (rad) error of the observed
+    cameras' poses (a camera no observation names keeps its initial
+    pose) and mean relative inverse-depth error, against ground truth."""
+    o = problem.obs
+    seen = torch.zeros(poses_gt.shape[0], dtype=torch.bool,
+                       device=poses_gt.device)
+    seen[o.target_cam[o.valid != 0]] = True
+    seen[o.anchor_cam[o.valid != 0]] = True
+    xi = se3.log(se3.compose(se3.inverse(poses_gt[seen].double()),
+                             problem.cam_states[seen].double()))
+    rho, gt = problem.inv_depth.double(), rho_gt.double()
+    return (float(xi[:, :3].norm(dim=1).mean()),
+            float(xi[:, 3:].norm(dim=1).mean()),
+            float(((rho - gt).abs() / gt).mean()))
+
+
+def geo_solve(solve, args, label: str):
+    """One geometric solve, timed; checks that its cost falls and that
+    its result is finite.  Returns (problem, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, res = solve(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    init, cost = float(res.initial_cost), float(res.cost)
+    print(f"  {label}: cost {init:.6e} -> {cost:.6e}, {res.iterations} "
+          f"iterations, {res.tries} tries in {secs:.3f} s "
+          f"({res.iterations / secs:.2f} LM it/s)")
+    check(math.isfinite(cost) and cost < init, f"{label}: cost did not fall")
+    cams = p.cam_states if isinstance(p.cam_states, tuple) else (p.cam_states,)
+    check(all(bool(torch.isfinite(x).all()) for x in cams + (p.inv_depth,)),
+          f"{label}: non-finite state")
+    return p, res
+
+
+def geo_bench_phase(device, card: str, se3):
+    """Phase 7 (a): bench.py's geometric workload at full size."""
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        geometric_ba,
+        synthetic,
+    )
+    from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
+    from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        GEO,
+        GEO_PIXEL_NOISE,
+        SEED,
+        fixed_step_ms,
+        geo_fixed_step,
+        graph_ms,
+    )
+
+    t0 = time.perf_counter()
+    problem, poses_gt, rho_gt = synthetic.synth_ba_problem(
+        "pinhole", K=GEO["K"], L=GEO["L"], obs_per_landmark=GEO["obs_per_lm"],
+        seed=SEED, pixel_noise=GEO_PIXEL_NOISE, dtype=torch.float32,
+        device=device)
+    prob_d, plan_d = fused.densify_problem(problem, pow2_buckets=False)
+    dense = geo_mega.make_geo_solver("pinhole", prob_d, plan_d, device=device)
+    chunk = geo_mega.make_geo_solver("pinhole", problem, device=device)
+    torch.cuda.synchronize()
+    O = problem.obs.valid.shape[0]
+    print(f"phase 7: geometric BA. (a) bench.py's workload: pinhole, "
+          f"{GEO['K']} cameras, {GEO['L']} landmarks, {O} observations "
+          f"({prob_d.obs.valid.shape[0]} slot rows), f32; problem, plans "
+          f"and solvers in {time.perf_counter() - t0:.1f} s")
+    cfg = ba.BAConfig(max_iterations=GEO_ITERATIONS, huber_delta=1.0)
+    for label, solve, prob in (("dense", dense, prob_d),
+                               ("chunk", chunk, problem)):
+        bits_equal(lambda: solve.build(prob, cfg), f"geo {label} build")
+    e0 = geo_errors(prob_d, poses_gt, rho_gt, se3)
+    solved, res_d = geo_solve(dense, (prob_d, cfg), "make_geo_solver dense")
+    e1 = geo_errors(solved, poses_gt, rho_gt, se3)
+    n_seen = int(torch.unique(torch.cat([prob_d.obs.anchor_cam,
+                                         prob_d.obs.target_cam])).numel())
+    print(f"    errors of the {n_seen} observed cameras: translation "
+          f"{e0[0]:.3e} -> {e1[0]:.3e} m, rotation {e0[1]:.3e} -> "
+          f"{e1[1]:.3e} rad; inverse depth {e0[2]:.3e} -> {e1[2]:.3e} "
+          f"(at 0.3 px the translations drift from ground truth along the "
+          f"chain of cameras: held on the zero-noise twin below)")
+    check(e1[1] < e0[1] and e1[2] < e0[2],
+          "geo: rotation or inverse-depth error did not shrink")
+    # the same workload at zero pixel noise, where ground truth is the
+    # optimum: every error must shrink
+    p0, gt0, rho0 = synthetic.synth_ba_problem(
+        "pinhole", K=GEO["K"], L=GEO["L"], obs_per_landmark=GEO["obs_per_lm"],
+        seed=SEED, pixel_noise=0.0, dtype=torch.float32, device=device)
+    p0, plan0 = fused.densify_problem(p0, pow2_buckets=False)
+    z0 = geo_errors(p0, gt0, rho0, se3)
+    s0, _ = geo_solve(geo_mega.make_geo_solver("pinhole", p0, plan0,
+                                               device=device), (p0, cfg),
+                      "zero-noise twin, dense")
+    z1 = geo_errors(s0, gt0, rho0, se3)
+    print(f"    zero-noise twin: translation {z0[0]:.3e} -> {z1[0]:.3e} m, "
+          f"rotation {z0[1]:.3e} -> {z1[1]:.3e} rad, inverse depth "
+          f"{z0[2]:.3e} -> {z1[2]:.3e}")
+    check(all(b < 0.1 * a for a, b in zip(z0, z1)),
+          "geo zero-noise twin: errors did not shrink tenfold")
+    _, res_c = geo_solve(chunk, (problem, cfg), "make_geo_solver chunk")
+    _, res_b = geo_solve(
+        lambda p, c: geometric_ba.bundle_adjustment(p, "pinhole", c),
+        (problem, cfg), "bundle_adjustment")
+    costs = [float(r.cost) for r in (res_d, res_c, res_b)]
+    check(max(costs) - min(costs) <= GEO_COST_RTOL * min(costs),
+          f"geo: final costs {costs} differ by more than rtol "
+          f"{GEO_COST_RTOL}")
+
+    step = geo_fixed_step(dense, prob_d, cfg._replace(max_iterations=1))
+    ms = fixed_step_ms(step, prob_d, GEO_STEPS, device)
+    ms_graph = graph_ms(lambda: step(prob_d)[1])
+    print(f"  fixed LM step (build_geo_dense2, solve_lam2 at lambda 1e-4, "
+          f"retraction): {ms:.4f} ms launched from the host ({GEO_STEPS} "
+          f"chained steps less one, CUDA events), {ms_graph:.4f} ms from a "
+          f"CUDA graph of 20 steps")
+    print(f"  geo_lm_iters_per_s {1e3 / ms:.2f} (host-launched; "
+          f"{1e3 / ms_graph:.2f} from the graph) on {card}")
+    return 1e3 / ms
+
+
+def reference_trajectory(path) -> dict:
+    """{(frame, cam): (7,) pose} of the reference run's CAMERA lines."""
+    ref = {}
+    for line in path.read_text().splitlines():
+        f = line.split()
+        if f and f[0] == "CAMERA":
+            ref[(int(f[1]), int(f[2]))] = np.array(f[3:10], float)
+    return ref
+
+
+def map_report(problem, cams, ref: dict, model: str) -> tuple[float, float]:
+    """(reprojection RMS px, cam-0 position RMSE m against the reference
+    run after Umeyama alignment) of a geometric problem's state."""
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
+    from photometric_bundle_adjustment_tpu_torch.utils import evaluation
+
+    o = problem.obs
+    r = geometric_ba.make_residual_fn(model)(
+        ba.take_rows(problem.cam_states, o.anchor_cam),
+        ba.take_rows(problem.cam_states, o.target_cam),
+        problem.inv_depth[o.landmark], o.aux).double()
+    rms = float(torch.sqrt((r * r).sum(1).mean()))
+    poses = problem.cam_states.double().cpu().numpy()
+    est = {k: poses[i] for i, k in enumerate(cams) if k in ref}
+    rmse = evaluation.ate_rmse(evaluation.trajectory_from_cameras(est),
+                               evaluation.trajectory_from_cameras(
+                                   {k: ref[k] for k in est}))
+    return rms, rmse
+
+
+def perturb_map(problem, seed: int):
+    """The map with its free poses moved by MAP_POSE_NOISE tangent noise
+    and its inverse depths by MAP_DEPTH_NOISE relative noise (numpy
+    seed), in float64 on the CPU."""
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+
+    rng = np.random.default_rng(seed)
+    free = ~problem.fixed_cams.cpu().numpy()
+    d = np.zeros((free.shape[0], 6))
+    d[free] = rng.normal(0, MAP_POSE_NOISE, (int(free.sum()), 6))
+    rho = problem.inv_depth.cpu().double() * torch.as_tensor(
+        1.0 + rng.normal(0, MAP_DEPTH_NOISE, problem.inv_depth.shape[0]))
+    poses = geometric_ba.cam_retract(problem.cam_states.cpu().double(),
+                                     torch.as_tensor(d))
+    return poses, rho
+
+
+def real_map_phase(device):
+    """Phase 7 (b): the real EuRoC V1 map on the card against the port's
+    own f64 CPU solve."""
+    import pickle
+    from pathlib import Path
+
+    from photometric_bundle_adjustment_tpu_torch.io import calib_io
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
+    from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
+        SchurPlan,
+    )
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        SfmPipeline,
+    )
+
+    root = Path(__file__).resolve().parent
+    with open(root / "runs" / "map_r5_run20.pkl", "rb") as f:
+        m = pickle.load(f)
+    with open(root / "runs" / "cache_r5" / "corners.pkl", "rb") as f:
+        corners = pickle.load(f)["data"]
+    calib = calib_io.load_calibration(
+        str(root / "refbaseline" / "artifacts" / "ref_opt_calib.json"))
+    ref = reference_trajectory(root / "refbaseline" / "artifacts"
+                               / "run_v1_trajectory.txt")
+    model = calib.cam_types[0]
+    problems = {}
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+        pipe = SfmPipeline.from_map(m, corners, calib, log=lambda s: None,
+                                    device=dev)
+        problems[dtype], cams, _ = pipe._build_ba_problem(dtype=dtype)
+    p32 = problems[torch.float32]
+    K, L = p32.cam_states.shape[0], p32.inv_depth.shape[0]
+    print(f"  (b) the real map: {K} cameras, {L} landmarks, "
+          f"{p32.obs.valid.shape[0]} observations, model {model!r}, f32 on "
+          f"the card, f64 on the CPU; {MAP_ITERATIONS} iterations, Huber 1")
+    _, plan = geometric_ba._accel_plan(p32)
+    check(isinstance(plan, SchurPlan), "real map: not the chunk branch")
+    print("    _accel_plan: the chunk branch (heavy-tailed map)")
+    cfg = ba.BAConfig(max_iterations=MAP_ITERATIONS)
+    pert = perturb_map(problems[torch.float64], SEED_MAP)
+    for state in ("saved", "perturbed"):
+        runs = {}
+        for dtype, prob in problems.items():
+            if state == "perturbed":
+                prob = prob._replace(
+                    cam_states=pert[0].to(prob.inv_depth.device, dtype),
+                    inv_depth=pert[1].to(prob.inv_depth.device, dtype))
+            rms0, rmse0 = map_report(prob, cams, ref, model)
+            t0 = time.perf_counter()
+            solved, res = geometric_ba.bundle_adjustment(prob, model, cfg)
+            if prob.inv_depth.is_cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rms1, rmse1 = map_report(solved, cams, ref, model)
+            init, cost = float(res.initial_cost), float(res.cost)
+            where = "card f32" if dtype == torch.float32 else "CPU f64"
+            print(f"    {state}, {where}: cost {init:.6e} -> {cost:.6e}, "
+                  f"{res.iterations} iterations, {res.tries} tries in "
+                  f"{secs:.2f} s; reprojection RMS {rms0:.4f} -> {rms1:.4f} "
+                  f"px; cam-0 RMSE against the reference run {rmse0:.5f} -> "
+                  f"{rmse1:.5f} m")
+            check(math.isfinite(cost) and cost <= init,
+                  f"real map {state} {where}: cost rose")
+            check(bool(torch.isfinite(solved.cam_states).all()),
+                  f"real map {state} {where}: non-finite poses")
+            if state == "perturbed":
+                check(cost < 0.5 * init,
+                      f"real map perturbed {where}: cost did not fall")
+            runs[where] = cost
+        rel = abs(runs["card f32"] - runs["CPU f64"]) / runs["CPU f64"]
+        print(f"    {state}: card f32 final cost {rel:.3e} from the CPU's "
+              f"f64 (limit {MAP_COST_RTOL})")
+        check(rel <= MAP_COST_RTOL, f"real map {state}: the card's final cost "
+              f"is {rel:.3e} from the f64 solve")
+    print("    (the cam-0 RMSE is the distance from the reference C++ run's "
+          "own map, not ground-truth ATE)")
+
+
+def entry_points_phase(device):
+    """Phase 7 (c): ``entry()``, the non-fused photometric solver and the
+    generic manifold LM on the card."""
+    from photometric_bundle_adjustment_tpu_torch import entry as port_entry
+    from photometric_bundle_adjustment_tpu_torch.core import se3
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        photometric_ba as pba,
+    )
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
+    from photometric_bundle_adjustment_tpu_torch.optim.lm import (
+        LMConfig,
+        lm_solve,
+    )
+
+    step, (problem,) = port_entry.entry(device=device)
+    cost, dc, dp = step(problem)
+    print(f"  (c) entry(): cost {float(cost):.6e}, |delta_c| "
+          f"{float(dc.abs().max()):.3e}, |delta_p| {float(dp.abs().max()):.3e}")
+    check(bool(torch.isfinite(cost) and torch.isfinite(dc).all()
+               and torch.isfinite(dp).all()) and dc.shape == (4, 8)
+          and dp.shape == (256,), "entry(): non-finite or misshapen")
+
+    prob, images, H, W, _, _ = synthetic.synth_pba_problem(K=4, L=256,
+                                                           device=device)
+    solve = pba.make_solver("pinhole", images, H, W, device=device)
+    geo_solve(solve, (prob, ba.BAConfig(max_iterations=10, huber_delta=9.0)),
+              "photometric make_solver")
+
+    # the SE3 fit of the reference's test_ceres_se3.cpp (f64 on the card)
+    eps = float(np.finfo(np.float64).eps)
+    xi = torch.tensor([0.2, 0.5, -1.0, 0.3, -0.1, 0.7], dtype=torch.float64,
+                      device=device)
+    T_t = se3.exp(xi)
+    T_aw = se3.inverse(T_t)
+    T0 = se3.exp(torch.zeros_like(xi))
+    T_f, res = lm_solve(lambda T: se3.log(se3.compose(T_aw, T)), T0,
+                        se3.right_plus, 6,
+                        LMConfig(max_iterations=50, function_tolerance=0.01 * eps,
+                                 gradient_tolerance=0.0,
+                                 parameter_tolerance=0.0))
+    mse = float(torch.sum(se3.log(se3.compose(T_aw, T_f)) ** 2))
+    print(f"    lm_solve SE3 fit: {res.iterations} iterations, cost "
+          f"{float(res.initial_cost):.3e} -> {float(res.cost):.3e}, mse "
+          f"{mse:.3e} (limit {10 * eps:.3e})")
+    check(mse < 10 * eps, "lm_solve did not converge")
+
+
+def geo_phase(device, card: str, se3) -> float:
+    """Phase 7: geometric BA.  Returns ``geo_lm_iters_per_s``."""
+    reset_counts()
+    rate = geo_bench_phase(device, card, se3)
+    real_map_phase(device)
+    entry_points_phase(device)
+    counts = kernel_counts()
+    print(f"  kernel launches in phase 7: {counts} (the geometric path runs "
+          f"no hand-written kernel; the JAX package has no Pallas kernel "
+          f"there)")
+    check(not any(counts.values()), "phase 7 launched a kernel")
+    return rate
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1314,6 +1672,7 @@ def main() -> int:
     sampler = sampler_phase(pipe0, device, se3)
     bf16 = dense_phase(pipe5, device, se3)
     grid, window = probe_phase(device)
+    geo_phase(device, card, se3)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",

@@ -1,27 +1,40 @@
-"""photometric_bundle_adjustment_tpu_torch — the photometric bundle
-adjustment solve and the SfM front end in PyTorch, with their kernels
-written in CUDA C++ for Hopper (sm_90a).
+"""photometric_bundle_adjustment_tpu_torch — the photometric and geometric
+bundle adjustment solves and the SfM front end in PyTorch, with their
+kernels written in CUDA C++ for Hopper (sm_90a).
 
 The package mirrors the module paths of ``photometric_bundle_adjustment_tpu``
 (the JAX reference) for the slices it covers:
 
-- ``core``      SE3 quaternion ops, the four camera models and the
-                plane-layout projection with its analytic Jacobian.
+- ``core``      SE3 quaternion ops, the four camera models (and the
+                reference's test intrinsics) and the plane-layout
+                projection with its analytic Jacobian.
 - ``features``  Shi-Tomasi detection, rotated BRIEF descriptors, Hamming
                 matching with the ratio test and mutual check, all-pairs
                 matching over a pair worklist, the epipolar test.
-- ``optim``     the BA types, the host-side chunk plans, the chunked
-                segment sum and the fixed-order sums (``tree_sum``) that
-                make a build repeat bit for bit.
-- ``models``    the photometric problem, samplers, image pyramid and the
-                synthetic problem, map and stereo-sequence generators.
+- ``optim``     the BA types, the scatter-add reference step, Schur solve
+                and solver (``ba``), the shared LM loops, the host-side
+                chunk plans, the plan-based fused solver with the
+                forward-mode Jacobian default (``fused``), the fixed-order
+                sums (``tree_sum``) that make a build repeat bit for bit,
+                and the generic manifold LM (``lm``).
+- ``models``    the photometric problem, samplers, image pyramid and
+                solvers; the geometric (reprojection) problem, its
+                closed-form Jacobian and ``bundle_adjustment``
+                (``geometric_ba``); the synthetic problem, map and
+                stereo-sequence generators.
 - ``ops``       the photometric megakernel (``pba_mega``: warp, sampling
                 and Schur payloads of every observation column), the
                 patch sampler (``patch_sample``) and the Hamming best-two
                 matcher (``hamming``), each with its plain PyTorch
-                version, and the kernel builder.
+                version, and the kernel builder; the plane-layout
+                geometric builds (``geo_mega``, no kernel).
 - ``pipeline``  ``refine_photometric`` (coarse-to-fine photometric BA of a
-                map), ``SfmPipeline``'s front-end stages and ``SfmConfig``.
+                map), ``SfmPipeline``'s front-end stages, a saved map
+                (``from_map``) and its geometric BA problem, and
+                ``SfmConfig``.
+- ``io``        the calibration JSON loader (``calib_io``).
+- ``utils``     Umeyama alignment and trajectory error (``evaluation``).
+- ``entry``     the compile-check step of the flagship model.
 
 It imports torch and numpy only: never ``jax``, and never the JAX package.
 Entry points run on the card (``device="cuda"``) unless the caller asks

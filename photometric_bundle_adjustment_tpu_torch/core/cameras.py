@@ -4,11 +4,13 @@ Port of ``photometric_bundle_adjustment_tpu/core/cameras.py``: four models
 on a uniform ``(8,)`` parameter vector, selected by name ("pinhole",
 "eucm", "ds", "kb4"), broadcasting over leading point dims.
 
-Only the forward pass is ported: nothing on the photometric solve
-differentiates through these functions (the warp Jacobian is analytic, in
-``core/camera_slab.py``).  The kb4 inverse keeps the reference's 5 fixed
-Newton steps; its implicit-function gradient becomes a
+The solvers' Jacobians are analytic (``core/camera_slab.py``); the
+forward-mode default of ``optim/ba.forward_mode_rj`` differentiates
+``project`` with ``torch.func.jvp``, never ``unproject`` (the anchor rays
+are constants).  The kb4 inverse keeps the reference's 5 fixed Newton
+steps; its implicit-function gradient becomes a
 ``torch.autograd.Function`` when a caller first needs it.
+``test_params`` gives the reference's test intrinsics.
 """
 
 from __future__ import annotations
@@ -195,3 +197,18 @@ def unproject_unit(model: str, params: torch.Tensor,
     """Unproject and normalise to a unit bearing vector."""
     v = unproject(model, params, uv)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def test_params(model: str, dtype=torch.float64) -> torch.Tensor:
+    """The reference's hard-coded test intrinsics (``getTestProjections``,
+    camera_models.h:60-66, 134-140, 211-218, 300-307) of ``model``, as an
+    (8,) tensor on the CPU."""
+    vals = {
+        "pinhole": [0.5 * 805, 0.5 * 800, 505, 509, 0, 0, 0, 0],
+        "eucm": [0.5 * 500, 0.5 * 500, 319.5, 239.5, 0.51231234, 0.9, 0, 0],
+        "ds": [0.5 * 805, 0.5 * 800, 505, 509, 0.5 * -0.150694,
+               0.5 * 1.48785, 0, 0],
+        "kb4": [379.045, 379.008, 505.512, 509.969, 0.00693023, -0.0013828,
+                -0.000272596, -0.000452646],
+    }
+    return torch.tensor(vals[model], dtype=dtype)

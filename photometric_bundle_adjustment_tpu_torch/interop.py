@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from photometric_bundle_adjustment_tpu_torch import device as devices
+from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.optim import ba
 
@@ -45,6 +46,35 @@ def problem_from_numpy(tree, device) -> ba.BAProblem:
         valid=np.asarray(obs.valid) != 0, fixed_cams=f(tree.fixed_cams),
         lm_valid=f(tree.lm_valid),
     )
+
+
+def geometric_problem_from_numpy(tree, device) -> ba.BAProblem:
+    """The port's geometric BAProblem from a BAProblem-shaped tree (the JAX
+    package's, or ``problem_to_numpy``'s) whose leaves ``np.asarray`` can
+    read; floats keep the inverse depths' dtype."""
+    obs, aux = tree.obs, tree.obs.aux
+    return geometric_ba.build_problem(
+        poses=np.asarray(tree.cam_states),
+        inv_depth=torch.as_tensor(np.asarray(tree.inv_depth)),
+        anchor_cam=np.asarray(obs.anchor_cam),
+        target_cam=np.asarray(obs.target_cam),
+        landmark=np.asarray(obs.landmark),
+        uv_target=np.asarray(aux.uv_target), uv_ref=np.asarray(aux.uv_ref),
+        intr_ref=np.asarray(aux.intr_ref),
+        intr_target=np.asarray(aux.intr_target),
+        valid=np.asarray(obs.valid) != 0,
+        fixed_cams=np.asarray(tree.fixed_cams),
+        lm_valid=np.asarray(tree.lm_valid), device=device)
+
+
+def problem_to_numpy(problem):
+    """A copy of a problem (any tuple tree of tensors, the port's
+    NamedTuples kept) with numpy leaves, on the host."""
+    if torch.is_tensor(problem):
+        return problem.detach().cpu().numpy()
+    if isinstance(problem, tuple):
+        return type(problem)(*(problem_to_numpy(x) for x in problem))
+    return problem
 
 
 def descriptors_from_numpy(desc, device="cuda") -> torch.Tensor:

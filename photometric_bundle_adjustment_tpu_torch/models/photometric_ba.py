@@ -17,7 +17,8 @@ per-tap gathers (``make_fused_solver``), or the patch-sampling kernel of
 ``ops/patch_sample.py`` on the problem's own rows
 (``make_kernel_fused_solver``, chunk plans) or on the slot-major layout of
 ``optim.fused.densify_problem`` (``make_kernel_dense_solver``).  All of
-them solve with ``optim.fused.make_fused_ba_solver``.  The JAX package's
+them solve with ``optim.fused.make_fused_ba_solver``; ``make_solver`` is
+the scatter-add reference solver of ``optim.ba.make_ba_solver``.  The JAX package's
 ``"tile"`` sampler option of ``make_rj_fn``/``make_residual_fn`` is not
 ported (ROADMAP, "Not to port"): they take no ``sampler`` argument.
 """
@@ -319,6 +320,20 @@ def make_residual_fn(model: str, images_flat: torch.Tensor, H: int, W: int):
 def default_config() -> ba.BAConfig:
     # Huber on intensities (DSO uses ~9 greyvalues)
     return ba.BAConfig(max_iterations=20, huber_delta=9.0)
+
+
+def make_solver(model: str, images_flat: torch.Tensor, H: int, W: int, *,
+                device="cuda"):
+    """The non-fused solver (``ba.make_ba_solver``: scatter-add normal
+    equations, ``schur_solve``, the classic LM loop) with gather sampling
+    and the closed-form rj, on ``device``: call as ``solve(problem,
+    cfg)``."""
+    device = devices.resolve(device)
+    images_flat = images_flat.to(device)
+    res_b, rj_b = _batched_fns(model, _gather_sampler(images_flat, H, W))
+    inner = ba.make_ba_solver(res_b, cam_retract, 8, rj_fn=rj_b)
+    return lambda problem, cfg=ba.BAConfig(): inner(
+        ba.problem_to(problem, device), cfg)
 
 
 def _solver_on(device: torch.device, residual_fn, rj_fn):

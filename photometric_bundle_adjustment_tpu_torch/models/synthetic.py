@@ -1,4 +1,8 @@
-"""Synthetic photometric BA inputs, generated from numpy seeds.
+"""Synthetic BA inputs, generated from numpy seeds.
+
+``synth_ba_problem`` ports the JAX package's perturbed multi-view
+reprojection problem with EuRoC-like geometry (the workload of its
+``bench.py`` geometric BA), with the same random draws in the same order.
 
 ``synth_pba_problem`` ports the JAX package's sphere-and-texture problem
 (``photometric_bundle_adjustment_tpu/models/synthetic.py``) to tensors.
@@ -36,7 +40,77 @@ import torch
 
 from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import cameras, se3
+from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
+
+
+def synth_ba_problem(model: str = "pinhole", K: int = 8, L: int = 256,
+                     obs_per_landmark: int = 4, seed: int = 0,
+                     pose_noise: float = 0.01, depth_noise: float = 0.03,
+                     pixel_noise: float = 0.0, dtype=torch.float64, *,
+                     device="cuda"):
+    """A perturbed multi-view reprojection-BA problem with EuRoC-like
+    geometry: K cameras along x, L landmarks, each anchored in one of the
+    first K/2 cameras and seen by the next ``obs_per_landmark`` cameras.
+    Returns ``(problem, poses_gt (K, 7), inv_depth_gt (L,))`` on
+    ``device``; the geometry is computed in ``dtype`` on the CPU, noise
+    added in float64, as the JAX function does with x64 on."""
+    device = devices.resolve(device)
+    rng = np.random.default_rng(seed)
+    intr = cameras.test_params(model, dtype=dtype)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype)
+
+    xi = np.zeros((K, 6))
+    xi[:, 0] = np.arange(K) * 0.25
+    xi[:, 1] = rng.normal(0, 0.05, K)
+    xi[:, 3:] = rng.normal(0, 0.02, (K, 3))
+    xi[0] = 0
+    poses_gt = se3.exp(t(xi))
+
+    pts = np.stack([rng.uniform(-3, 3 + 0.25 * K, L), rng.uniform(-2, 2, L),
+                    rng.uniform(4, 12, L)], axis=-1)
+    pts_w = se3.act(poses_gt[0], t(pts))
+
+    # anchor camera per landmark
+    anchor_of_lm = rng.integers(0, max(K // 2, 1), L)
+    p_a = se3.act(se3.inverse(poses_gt[anchor_of_lm]), pts_w)
+    uv_ref = cameras.project(model, intr, p_a)
+    inv_depth_gt = 1.0 / torch.linalg.norm(p_a, dim=-1)
+
+    # obs_per_landmark target cameras per landmark (the anchor skipped)
+    obs_a, obs_c, uv_t_rows = [], [], []
+    for j in range(obs_per_landmark):
+        tgt = (anchor_of_lm + 1 + j) % K
+        obs_a.append(anchor_of_lm)
+        obs_c.append(tgt)
+        p_t = se3.act(se3.inverse(poses_gt[tgt]), pts_w)
+        uv = cameras.project(model, intr, p_t).double().numpy()
+        if pixel_noise > 0:
+            uv = uv + rng.normal(0, pixel_noise, uv.shape)
+        uv_t_rows.append(uv)
+    O = L * obs_per_landmark
+
+    # perturbed initial state
+    dpose = np.zeros((K, 6))
+    dpose[2:] = rng.normal(0, pose_noise, (K - 2, 6))
+    poses0 = se3.right_plus(poses_gt, t(dpose))
+    rho0 = inv_depth_gt.double() * torch.as_tensor(
+        1.0 + rng.normal(0, depth_noise, L))
+
+    problem = geometric_ba.build_problem(
+        poses=poses0, inv_depth=rho0.to(dtype),
+        anchor_cam=np.concatenate(obs_a), target_cam=np.concatenate(obs_c),
+        landmark=np.tile(np.arange(L), obs_per_landmark),
+        uv_target=np.concatenate(uv_t_rows),
+        uv_ref=uv_ref.repeat(obs_per_landmark, 1),
+        intr_ref=intr.repeat(O, 1), intr_target=intr.repeat(O, 1),
+        valid=np.ones(O, bool), fixed_cams=np.arange(K) < 2,
+        dtype=dtype, device=device,
+    )
+    return problem, poses_gt.to(device), inv_depth_gt.to(device)
+
 
 # ---------------------------------------------------------------------------
 # an image wider than the TPU kernel's column field

@@ -177,8 +177,9 @@ def build_mega_plan(problem_slot: ba.BAProblem, plan_slot: DenseLmSchurPlan):
     The kernel's columns are the S x L slot rows, empty slots zero
     columns; the pair chunks' dummies gather the first empty slot, or one
     zero column appended where every slot is filled.  Returns ``(plan,
-    rows)`` as ``build_chunk_mega_plan``: feed ``plan`` to ``plan_to``."""
-    K = problem_slot.cam_states.pose.shape[0]
+    rows)`` as ``build_chunk_mega_plan``: feed ``plan`` to ``plan_to``.
+    The geometric dense build (``ops/geo_mega.py``) takes the same plan."""
+    K = ba.num_cams(problem_slot)
     valid = _numpy(problem_slot.obs.valid) != 0
     Os = valid.shape[0]
     rows = np.where(valid, np.arange(Os), -1)
@@ -486,13 +487,14 @@ def _payload(model: str, images, problem: ba.BAProblem, consts: MegaConsts,
                       consts, float(cfg.huber_delta))
 
 
-def _pair_gram(J2, pg, cc_seg: SegmentTree, K: int):
-    """H_cc (K, K, C, C) from the camera-pair Gram chunks over the kernel's
-    p-major Jacobian rows ``J2`` (rows, 136), summed into the K*K blocks
+def _pair_gram(J2, pg, cc_seg: SegmentTree, K: int, C: int = C):
+    """H_cc (K, K, C, C) from the camera-pair Gram chunks over Jacobian
+    rows ``J2`` (rows, R*(2C+1)) whose 2C+1 columns repeat per residual
+    (the kernel's p-major rows: R = 8, C = 8), summed into the K*K blocks
     in the fixed order of ``cc_seg``."""
-    rows = J2[pg]                                             # (NCp, Bp, 136)
-    rows2 = rows.reshape(rows.shape[0], -1, 17)[..., :16]
-    G2 = torch.bmm(rows2.transpose(1, 2), rows2)              # (NCp, 16, 16)
+    rows = J2[pg]                                   # (NCp, Bp, R*(2C+1))
+    rows2 = rows.reshape(rows.shape[0], -1, 2 * C + 1)[..., :2 * C]
+    G2 = torch.bmm(rows2.transpose(1, 2), rows2)    # (NCp, 2C, 2C)
     blocks = torch.stack(
         [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
     ).reshape(-1, C * C)
@@ -661,39 +663,14 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
                              inv_depth=prob.inv_depth + dp)
 
     def solve(problem: ba.BAProblem, cfg: ba.BAConfig = ba.BAConfig()):
-        """Fused-cost LM loop: the build at the trial point is both the
-        accept check and, on acceptance, the next normal equations.  One
-        host sync per try (the cost comparison)."""
+        """Fused-cost LM loop (``ba.lm_fused_cost``): the build at the
+        trial point is both the accept check and, on acceptance, the next
+        normal equations.  One host sync per try (the cost comparison)."""
         problem = ba.problem_to(problem, device)
         free = ~problem.fixed_cams
-        init_cost, neq = build(problem, cfg)
-        cost = init_cost
-        cost_f = float(cost)
-        lam = float(cfg.init_lambda)
-        rejects = iters = tries = 0
-        while (iters < cfg.max_iterations
-               and tries < cfg.max_iterations * cfg.max_retries):
-            dc, dp = _solve_lam(neq, lam, free, cfg)
-            p_try = apply_step(problem, dc, dp)
-            cost_try, neq_try = build(p_try, cfg)
-            c_try = float(cost_try)
-            tries += 1
-            ok = c_try < cost_f and math.isfinite(c_try)
-            small = False
-            if ok:
-                small = abs(cost_f - c_try) <= (
-                    cfg.function_tolerance * max(cost_f, 1e-300))
-                problem, cost, cost_f, neq = p_try, cost_try, c_try, neq_try
-                lam = max(lam / 3.0, cfg.min_lambda)
-                rejects = 0
-                iters += 1
-            else:
-                lam *= 10.0
-                rejects += 1
-            if small or rejects >= cfg.max_retries or lam > cfg.max_lambda:
-                break
-        return problem, ba.BAResult(cost=cost, initial_cost=init_cost,
-                                    iterations=iters, lam=lam, tries=tries)
+        return ba.lm_fused_cost(
+            problem, lambda p: build(p, cfg),
+            lambda neq, lam: _solve_lam(neq, lam, free, cfg), apply_step, cfg)
 
     solve.build = build
     solve.solve_lam = _solve_lam

@@ -26,14 +26,13 @@ full f32: TF32 is off in every build and solve (``full_f32``).
 
 from __future__ import annotations
 
-import contextlib
-import math
 from typing import Callable
 
 import numpy as np
 import torch
 
 from photometric_bundle_adjustment_tpu_torch.optim import ba
+from photometric_bundle_adjustment_tpu_torch.optim.ba import full_f32
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     ChunkPlan,
     DenseLmSchurPlan,
@@ -59,7 +58,7 @@ def plan_for_problem(problem: ba.BAProblem, **kwargs):
     the host, as int64 tensors on the problem's device.  ``kwargs`` go to
     ``build_schur_plan`` (chunk sizes, ``pow2_buckets``)."""
     o = problem.obs
-    K = problem.cam_states[0].shape[0]
+    K = ba.num_cams(problem)
     L = problem.inv_depth.shape[0]
     plan = build_schur_plan(
         o.anchor_cam.cpu().numpy(), o.target_cam.cpu().numpy(),
@@ -81,7 +80,7 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
     only the observation order differs.  ``kwargs`` go to
     ``build_dense_lm_plan``."""
     o = problem.obs
-    K = problem.cam_states[0].shape[0]
+    K = ba.num_cams(problem)
     L = problem.inv_depth.shape[0]
     dev = problem.inv_depth.device
     an = o.anchor_cam.cpu().numpy()
@@ -170,9 +169,7 @@ def damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask,
     S = H_cc_mat + torch.diag(lam * d_cc) - S_corr0 / (1.0 + lam)
     rhs = -(g_c.reshape(-1) - rhs_corr0 / (1.0 + lam))
     S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
-    chol, info = torch.linalg.cholesky_ex(S)
-    delta_c = torch.cholesky_solve((rhs * mask)[:, None], chol)[:, 0] * mask
-    return torch.where(info == 0, delta_c, torch.full_like(delta_c, math.nan))
+    return ba.cholesky_solve_or_nan(S, rhs * mask) * mask
 
 
 def solve_lam(neq, lam: float, free_cam_mask: torch.Tensor,
@@ -191,24 +188,8 @@ def solve_lam(neq, lam: float, free_cam_mask: torch.Tensor,
     return delta_c.reshape(K, C_), delta_p
 
 
-@contextlib.contextmanager
-def full_f32():
-    """Full-f32 matrix products: the Schur Gram and the Cholesky must not
-    run in TF32 (reduced precision perturbs the solve through the
-    ill-conditioned reduced system)."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
-                         cam_tangent_dim: int, rj_fn: Callable):
+                         cam_tangent_dim: int, rj_fn: Callable | None = None):
     """Returns ``solve(problem, plan, cfg) -> (problem, BAResult)``, with
     ``.build(problem, plan, cfg) -> (cost, neq)`` and ``.solve_lam(neq,
     lam, free, cfg)`` exposed.
@@ -217,12 +198,16 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
     -> (r (O, R), J (O, R, 2C+1) or (O, R*(2C+1)))`` are batched over the
     observation axis (see ``ba.make_residual_cost``); J's columns are
     [anchor tangent (C), target tangent (C), inverse depth].
-    ``cam_retract(cams, delta (K, C))`` is batched over cameras.  The
-    JAX package's ``jacfwd`` default for ``rj_fn`` is not ported (ROADMAP
-    queue 1).  The solve runs on the device of the problem and plan."""
+    ``cam_retract(cams, delta (K, C))`` is batched over cameras.
+    ``rj_fn=None`` takes the JAX package's default, J by forward mode
+    through the retraction (``ba.forward_mode_rj``: 2C+1 ``jvp`` passes
+    over the batched residual).  The solve runs on the device of the
+    problem and plan."""
     C = cam_tangent_dim
     W = 2 * C + 1
     res_cost = ba.make_residual_cost(residual_fn)
+    if rj_fn is None:
+        rj_fn = ba.forward_mode_rj(residual_fn, cam_retract, C)
 
     def _pad_obs(o: ba.BAObservations) -> ba.BAObservations:
         """Append npad = 8 - O % 8 zero rows (valid=0): the plans' dummy
@@ -260,7 +245,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
                     cfg: ba.BAConfig):
         """Normal-equation assembly from the chunked segment-sum plans
         (any observation order)."""
-        K = problem.cam_states[0].shape[0]
+        K = ba.num_cams(problem)
         L = problem.inv_depth.shape[0]
         cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
         dtype = Jsw.dtype
@@ -299,7 +284,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         and sums over the slot axis; g_c and M are fixed-order sums by
         camera (``plan.gc_seg``, ``plan.m_seg``; padding rows carry camera
         K, which is dropped)."""
-        K = problem.cam_states[0].shape[0]
+        K = ba.num_cams(problem)
         L = problem.inv_depth.shape[0]
         S_ = plan.lm_cam.shape[0]
         cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
@@ -341,88 +326,20 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
             cam_states=cam_retract(problem.cam_states, delta_c),
             inv_depth=problem.inv_depth + delta_p)
 
-    def solve_cost_from_build(problem: ba.BAProblem, plan, cfg: ba.BAConfig):
-        """Fused-cost LM loop, one host sync per try: each try solves the
-        damped system from the carried normal equations and builds at the
-        trial point; the build's cost is the accept check and, on
-        acceptance, its normal equations seed the next iteration.  Same
-        accept criterion, lambda schedule (x10 per reject, /3 on accept)
-        and termination as ``solve_classic``."""
-        free = ~problem.fixed_cams
-        init_cost, neq = build(problem, plan, cfg)
-        cost, cost_f = init_cost, float(init_cost)
-        lam = float(cfg.init_lambda)
-        rejects = iters = tries = 0
-        while (iters < cfg.max_iterations
-               and tries < cfg.max_iterations * cfg.max_retries):
-            dc, dp = _solve_lam(neq, lam, free, cfg)
-            p_try = apply_step(problem, dc, dp)
-            cost_try, neq_try = build(p_try, plan, cfg)
-            c_try = float(cost_try)
-            tries += 1
-            ok = c_try < cost_f and math.isfinite(c_try)
-            small = False
-            if ok:
-                small = abs(cost_f - c_try) <= (
-                    cfg.function_tolerance * max(cost_f, 1e-300))
-                problem, cost, cost_f, neq = p_try, cost_try, c_try, neq_try
-                lam = max(lam / 3.0, cfg.min_lambda)
-                rejects = 0
-                iters += 1
-            else:
-                lam *= 10.0
-                rejects += 1
-            if small or rejects >= cfg.max_retries or lam > cfg.max_lambda:
-                break
-        return problem, ba.BAResult(
-            cost=cost, initial_cost=init_cost, iterations=iters, lam=lam,
-            tries=tries, builds=tries + 1)
-
-    def solve_classic(problem: ba.BAProblem, plan, cfg: ba.BAConfig):
-        """Classic LM loop: one build per iteration, then tries at growing
-        lambda, each a damped solve and a residual pass (one host sync),
-        until one lowers the cost.  Stops when no try is accepted, the
-        cost change is within ``function_tolerance``, or after
-        ``max_iterations`` iterations."""
-        free = ~problem.fixed_cams
-        with full_f32():
-            init_cost = res_cost(problem, cfg)
-        cost, cost_f = init_cost, float(init_cost)
-        lam = float(cfg.init_lambda)
-        iters = tries = builds = 0
-        for _ in range(cfg.max_iterations):
-            _, neq = build(problem, plan, cfg)
-            builds += 1
-            accepted, n_tries = False, 0
-            while (not accepted and n_tries < cfg.max_retries
-                   and lam <= cfg.max_lambda):
-                dc, dp = _solve_lam(neq, lam, free, cfg)
-                p_try = apply_step(problem, dc, dp)
-                with full_f32():
-                    new_cost = res_cost(p_try, cfg)
-                c_new = float(new_cost)
-                n_tries += 1
-                accepted = c_new < cost_f and math.isfinite(c_new)
-                if not accepted:
-                    lam *= 10.0
-            tries += n_tries
-            if not accepted:
-                break
-            small = abs(cost_f - c_new) <= (
-                cfg.function_tolerance * max(cost_f, 1e-300))
-            problem, cost, cost_f = p_try, new_cost, c_new
-            lam = max(lam / 3.0, cfg.min_lambda)
-            iters += 1
-            if small:
-                break
-        return problem, ba.BAResult(
-            cost=cost, initial_cost=init_cost, iterations=iters, lam=lam,
-            tries=tries, builds=builds, residual_passes=tries + 1)
-
     def solve(problem: ba.BAProblem, plan, cfg: ba.BAConfig = ba.BAConfig()):
+        """``ba.lm_fused_cost`` with ``cfg.cost_from_build``, else
+        ``ba.lm_classic`` (its residual passes through ``residual_fn``)."""
+        free = ~problem.fixed_cams
+
+        def solve_lam_at(neq, lam):
+            return _solve_lam(neq, lam, free, cfg)
+
         if cfg.cost_from_build:
-            return solve_cost_from_build(problem, plan, cfg)
-        return solve_classic(problem, plan, cfg)
+            return ba.lm_fused_cost(problem, lambda p: build(p, plan, cfg),
+                                    solve_lam_at, apply_step, cfg)
+        return ba.lm_classic(problem, lambda p: build(p, plan, cfg)[1],
+                             solve_lam_at, lambda p: res_cost(p, cfg),
+                             apply_step, cfg)
 
     solve.build = build
     solve.solve_lam = _solve_lam

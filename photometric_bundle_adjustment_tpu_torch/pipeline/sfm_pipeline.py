@@ -8,6 +8,14 @@ worklist is ``features.pair_matching.match_pairs`` followed by
 ``features.match.matches_to_pairs``, both on the device; the
 relative-pose RANSAC, tracks and the map stages come with later slices.
 
+A saved geometric map enters through ``SfmPipeline.from_map`` (cameras,
+tracks, landmarks and the cached corners, no images), and
+``_build_ba_problem`` turns it into the geometric BA problem that
+``models/geometric_ba.bundle_adjustment`` solves.  It pads nothing: the
+JAX package buckets K, L and O to powers of two, and on accelerators
+pre-pads K to the dataset's size, to bound recompiles; PyTorch compiles
+nothing per shape.
+
 The stages run on ``device`` (the card unless the caller asks for the
 CPU).  Descriptor matching goes through the Hamming kernel there: one
 launch gives both directions of all stereo pairs.  Feature dicts and match lists
@@ -21,6 +29,7 @@ pair goes through one batch (the JAX package counts one per
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -34,7 +43,32 @@ from photometric_bundle_adjustment_tpu_torch.features import (
     geometry,
     match,
 )
+from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
 from photometric_bundle_adjustment_tpu_torch.pipeline.config import SfmConfig
+
+
+@dataclass
+class Landmark:
+    inv_depth: float
+    obs: dict                      # {fcid: feature_id}
+    outlier_obs: dict = field(default_factory=dict)
+
+    def anchor(self):
+        """First observation in FrameCamId order, the reference frame
+        (obs.begin() on the ordered map, map_utils.h:351-352)."""
+        return min(self.obs)
+
+    def sorted_obs_arrays(self):
+        """(fcid keys, feature ids) of ``obs`` in FrameCamId order, as int64
+        arrays with fcid encoded frame*16+cam.  (The JAX package caches
+        them for its ~40 BA builds a run; one build here needs no
+        cache.)"""
+        items = sorted(self.obs.items())
+        n = len(items)
+        keys = np.fromiter((f * 16 + cam for (f, cam), _ in items), np.int64,
+                           n)
+        feats = np.fromiter((ft for _, ft in items), np.int64, n)
+        return keys, feats
 
 
 def _stereo_geometry(T_c0: torch.Tensor, T_c1: torch.Tensor):
@@ -55,16 +89,42 @@ class SfmPipeline:
         self.fcids = sorted(images)
         self.num_frames = len({f for (f, _) in self.fcids})
 
-        # map state of the front-end stages; tracks, cameras and
-        # landmarks come with the later stages
+        # map state: the front-end stages fill corners and matches; the
+        # map stages (a later slice) or ``from_map`` the rest
         self.corners: dict = {}
         self.matches: dict = {}
+        self.tracks: dict = {}
+        self.cameras: dict = {}       # {fcid: (7,) pose}
+        self.landmarks: dict = {}     # {track id: Landmark}
         # per-stage wall seconds
         self.timings: dict = {}
         # device-stage invocation counts, under the JAX package's names
         self.counters: dict = {}
 
         self._stacked = None  # device-side stacked features
+
+    @classmethod
+    def from_map(cls, map_dict: dict, corners: dict, calib,
+                 cfg: SfmConfig = SfmConfig(), log=print, *, device="cuda"):
+        """A pipeline holding a saved geometric map, as the JAX package's
+        ``apps/pba.py --map-in`` loads one, without images or detection:
+        ``map_dict`` the map pickle (``cameras``, ``tracks``,
+        ``landmarks`` as dicts of ``inv_depth``, ``obs``,
+        ``outlier_obs``), ``corners`` the cached detection ({fcid: feature
+        dict}, the ``data`` of a corners cache), whose feature ids the
+        observations name."""
+        pipe = cls({}, calib, cfg, log, device=device)
+        pipe.corners = dict(corners)
+        pipe.fcids = sorted(pipe.corners)
+        pipe.num_frames = len({f for (f, _) in pipe.fcids})
+        pipe.cameras = dict(map_dict["cameras"])
+        pipe.tracks = dict(map_dict.get("tracks", {}))
+        pipe.landmarks = {
+            t: Landmark(d["inv_depth"], dict(d["obs"]),
+                        dict(d.get("outlier_obs", {})))
+            for t, d in map_dict["landmarks"].items()
+        }
+        return pipe
 
     # ---------------------------------------------------------------- utils
 
@@ -196,3 +256,83 @@ class SfmPipeline:
         self.corners = {}
         self._stacked = None
         self.matches = {}
+
+    # ------------------------------------------------------------------- BA
+
+    def _uv_table(self):
+        """Every detected keypoint's uv rows concatenated, with each image's
+        base offset: a row lookup is one fancy index."""
+        offs, parts, base = {}, [], 0
+        for fcid, c in self.corners.items():
+            offs[fcid] = base
+            parts.append(c["uv"])
+            base += c["uv"].shape[0]
+        uv = np.concatenate(parts, axis=0) if parts else np.zeros((0, 2))
+        return uv, offs
+
+    def _build_ba_problem(self, dtype=torch.float64):
+        """The geometric BA problem of the map, on the pipeline's device:
+        every camera (sorted by fcid; (0, 0) and (0, 1) fixed, the gauge
+        of sfm.cpp:1903), every landmark (sorted by track id) anchored at
+        its first observation, and one row per other observation, in
+        landmark order then fcid order.  No padding (module docstring).
+        Returns ``(problem, cam_list, lm_list)``."""
+        cam_list = sorted(self.cameras)
+        cam_index = {f: i for i, f in enumerate(cam_list)}
+        lm_list = sorted(self.landmarks)
+        K, L = len(cam_list), len(lm_list)
+        poses = np.zeros((K, 7))
+        for f, i in cam_index.items():
+            poses[i] = self.cameras[f]
+        rho = np.zeros(L)
+        anchor_uv = np.zeros((L, 2))
+        anchor_cam_idx = np.zeros(L, np.int64)
+        anchor_intr = np.zeros(L, np.int64)
+        for i, t in enumerate(lm_list):
+            lm = self.landmarks[t]
+            a = lm.anchor()
+            rho[i] = lm.inv_depth
+            anchor_uv[i] = self.corners[a]["uv"][lm.obs[a]]
+            anchor_cam_idx[i] = cam_index[a]
+            anchor_intr[i] = a[1]
+
+        uvf, off = self._uv_table()
+        keys_l, feats_l = [], []
+        for t in lm_list:
+            k_arr, f_arr = self.landmarks[t].sorted_obs_arrays()
+            keys_l.append(k_arr[1:])   # skip the anchor (first in order)
+            feats_l.append(f_arr[1:])
+        nobs = np.fromiter((len(k) for k in keys_l), np.int64, L)
+        keys = np.concatenate(keys_l) if L else np.zeros(0, np.int64)
+        feats = np.concatenate(feats_l) if L else np.zeros(0, np.int64)
+        ol = np.repeat(np.arange(L), nobs)
+        if any(c >= 16 for _, c in self.fcids):
+            raise ValueError("fcid encoding frame*16+cam needs cam ids < 16")
+        cam_keys = np.fromiter((f * 16 + c for (f, c) in cam_list), np.int64,
+                               K)
+        oc = np.searchsorted(cam_keys, keys)
+        if oc.size and not np.array_equal(
+                cam_keys[np.minimum(oc, K - 1)], keys):
+            raise ValueError("a BA observation names a camera not in the map")
+        img_keys = np.fromiter((f * 16 + c for (f, c) in self.fcids),
+                               np.int64, len(self.fcids))
+        img_off = np.fromiter((off[f] for f in self.fcids), np.int64,
+                              len(self.fcids))
+        oi = np.searchsorted(img_keys, keys)
+        if oi.size and not np.array_equal(
+                img_keys[np.minimum(oi, len(img_keys) - 1)], keys):
+            raise ValueError("a BA observation names an image without "
+                             "corners")
+        intr_tab = np.asarray(self.calib.intrinsics)
+        fixed = np.zeros(K, bool)
+        for f in [(0, 0), (0, 1)]:
+            if f in cam_index:
+                fixed[cam_index[f]] = True
+        problem = geometric_ba.build_problem(
+            poses=poses, inv_depth=rho, anchor_cam=anchor_cam_idx[ol],
+            target_cam=oc, landmark=ol,
+            uv_target=uvf[img_off[oi] + feats].reshape(-1, 2),
+            uv_ref=anchor_uv[ol], intr_ref=intr_tab[anchor_intr[ol]],
+            intr_target=intr_tab[keys % 16], valid=np.ones(len(ol), bool),
+            fixed_cams=fixed, dtype=dtype, device=self.device)
+        return problem, cam_list, lm_list

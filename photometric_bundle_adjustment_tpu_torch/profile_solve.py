@@ -1,7 +1,7 @@
 """Where the time of one LM try goes, at full resolution.
 
     python3 -m photometric_bundle_adjustment_tpu_torch.profile_solve \
-        [--solver {mega,fused,kernel_fused,kernel_dense}] \
+        [--solver {mega,fused,kernel_fused,kernel_dense,geo}] \
         [--family {chunk,dense}] [--bf16]
 
 ``--solver mega`` (the default) profiles the megakernel solver
@@ -48,6 +48,21 @@ build less rj) and ``solve_lam``, then profiles ``--tries`` accepted
 iterations of the classic LM loop (build, damped solve, retraction,
 residual pass, host sync of the cost) the same way.
 
+``--solver geo`` profiles geometric BA (``ops/geo_mega.make_geo_solver``)
+on ``synthetic.synth_ba_problem`` at the size of the JAX package's
+``bench.py`` workload (pinhole, K=200, L=8192, 6 observations per
+landmark, 0.3 px noise, f32: 49,152 observations), in the dense
+slot-major family (``--family dense``, the default here, as bench.py) or
+the chunk family.  It times the build, the payload plane
+(``_geo_payload``), the assembly (the build less the payload), the Schur
+Gram, the damped solve and the Cholesky of the damped system alone, and
+the fixed LM step of bench.py (build, damped solve at lambda 1e-4,
+retraction; no accept test): N chained steps less one step, over N - 1,
+and ``geo_lm_iters_per_s`` from it; on the card, in the dense family,
+also the same step from one CUDA graph of 20 steps (``graph_ms``), which
+takes the host's launches out of the time.  Then ``--tries`` fixed steps
+run under the profiler (one host sync at the end).
+
 Prints one JSON object with every number as its last line.  ``--device
 cpu`` with small ``--K/--L/--H/--W`` runs the same code on the plain path.
 """
@@ -61,12 +76,13 @@ import time
 import torch
 
 from photometric_bundle_adjustment_tpu_torch import device as devices
+from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.models import synthetic
 from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
     cam_retract,
 )
-from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+from photometric_bundle_adjustment_tpu_torch.ops import geo_mega, pba_mega
 from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 
@@ -75,6 +91,9 @@ from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 # about 4.8k landmarks and 30k observations with a heavy tail of tracks.
 EUROC = dict(K=164, L=4800, H=480, W=752, obs_per_lm=5, long_tracks=200)
 SEED = 0
+# bench.py's geometric BA workload (bench.py:38-109)
+GEO = dict(K=200, L=8192, obs_per_lm=6)
+GEO_PIXEL_NOISE = 0.3
 # the H100 SXM's published memory rate at 700 W, for reckoned bounds
 H100_BYTES_PER_S = 3.35e12
 
@@ -299,14 +318,129 @@ def profile_fused(args, device: torch.device) -> dict:
     )
 
 
+def geo_fixed_step(solve, problem: ba.BAProblem, cfg: ba.BAConfig,
+                   lam: float = 1e-4):
+    """bench.py's fixed LM step of a ``make_geo_solver`` solve: build,
+    damped solve at ``lam``, retraction; no accept test and no host
+    sync.  Returns ``step(problem) -> (problem, cost)``."""
+    free = ~problem.fixed_cams
+
+    def step(p):
+        cost, neq = solve.build(p, cfg)
+        dc, dp = solve.solve_lam(neq, lam, free, cfg)
+        return p._replace(
+            cam_states=geometric_ba.cam_retract(p.cam_states, dc),
+            inv_depth=p.inv_depth + dp), cost
+
+    return step
+
+
+def fixed_step_ms(step, problem, n: int, device: torch.device,
+                  reps: int = 3) -> float:
+    """Milliseconds of one fixed step: ``n`` chained steps less one step,
+    over n - 1 (each the mean of ``reps`` runs; CUDA events on a GPU, the
+    host clock on the CPU), so the set-up and the drain of a run cancel."""
+    def run(k):
+        p = problem
+        for _ in range(k):
+            p, cost = step(p)
+        return cost
+
+    def ms(k):
+        return time_ms(lambda: run(k), device, reps=reps, warmup=1)
+
+    return (ms(n) - ms(1)) / (n - 1)
+
+
+def profile_geo(args, device: torch.device) -> dict:
+    """Phase times, the fixed step and the profiled steps of the geometric
+    solver (``--solver geo``)."""
+    gpu = device.type == "cuda"
+    if gpu:
+        torch.cuda.reset_peak_memory_stats(device)
+    problem, _, _ = synthetic.synth_ba_problem(
+        "pinhole", K=args.K, L=args.L, obs_per_landmark=args.obs_per_lm,
+        seed=SEED, pixel_noise=GEO_PIXEL_NOISE, dtype=torch.float32,
+        device=device)
+    n_obs = int(problem.obs.valid.shape[0])
+    if args.family == "dense":
+        problem, plan_slot = fused.densify_problem(problem,
+                                                   pow2_buckets=False)
+    else:
+        plan_slot = None
+    solve = geo_mega.make_geo_solver("pinhole", problem, plan_slot,
+                                     device=device)
+    cfg = ba.BAConfig(max_iterations=1, huber_delta=1.0)
+    free = ~problem.fixed_cams
+    _, neq = solve.build(problem, cfg)
+    lam = float(cfg.init_lambda)
+
+    def ms(fn):
+        return time_ms(fn, device, args.reps)
+
+    def gram():
+        with fused.full_f32():
+            if plan_slot is None:
+                return fused._schur_terms(neq[6], neq[7], neq[5])
+            return neq[5].T @ neq[5]
+
+    def damped_system():
+        H = neq[0]
+        d = torch.clamp(torch.diagonal(H), 1e-12, 1e32)
+        return H + torch.diag(lam * d) - neq[1] / (1.0 + lam)
+
+    S_lam = damped_system()
+    phases = dict(
+        build_ms=ms(lambda: solve.build(problem, cfg)),
+        payload_ms=ms(lambda: geo_mega._geo_payload(
+            "pinhole", problem, solve.consts, cfg)),
+        gram_ms=ms(gram),
+        solve_lam_ms=ms(lambda: solve.solve_lam(neq, lam, free, cfg)),
+        cholesky_ms=ms(lambda: torch.linalg.cholesky_ex(S_lam)),
+    )
+    phases["assembly_ms"] = phases["build_ms"] - phases["payload_ms"]
+    step = geo_fixed_step(solve, problem, cfg)
+    phases["fixed_step_ms"] = fixed_step_ms(step, problem, args.steps,
+                                            device)
+    phases["geo_lm_iters_per_s"] = 1e3 / phases["fixed_step_ms"]
+    if gpu and plan_slot is not None:
+        # the same step from one CUDA graph: no host launches in the time
+        phases["fixed_step_graph_ms"] = graph_ms(lambda: step(problem)[1])
+        phases["geo_lm_iters_per_s_graph"] = 1e3 / phases["fixed_step_graph_ms"]
+
+    def steps():
+        p = problem
+        for _ in range(args.tries):
+            p, cost = step(p)
+        return float(cost)                  # one host sync at the end
+
+    steps()
+    prof = profile_run(steps, 1, device)
+    runs = prof.pop("device_kernels_per_run")
+    prof["device_kernels_per_try"] = (runs / args.tries if runs is not None
+                                      else None)
+    return dict(
+        device=torch.cuda.get_device_name(device) if gpu else "cpu",
+        solver="geo", family=args.family, K=int(args.K),
+        L=int(problem.inv_depth.shape[0]), observations=n_obs,
+        rows=int(problem.obs.valid.shape[0]),
+        columns=int(solve.consts.valid.shape[0]), reps=args.reps,
+        steps=args.steps, **phases, tries=args.tries, **prof,
+        peak_device_mib=(torch.cuda.max_memory_allocated(device) / 2**20
+                         if gpu else None),
+    )
+
+
 def _report(result: dict, phases, prof: dict, tries: int, reps: int):
     gpu = result["device"] != "cpu"
     family = (f", {result['family']} family"
-              f"{', bf16 tier' if result['bf16'] else ''}"
+              f"{', bf16 tier' if result.get('bf16') else ''}"
               if "family" in result else "")
+    images = (f"{result['K']} images of {result['H']}x{result['W']}"
+              if "H" in result else f"{result['K']} cameras")
     print(f"profile_solve ({result['solver']}{family}): {result['device']}, "
-          f"{result['K']} images of {result['H']}x{result['W']}, "
-          f"{result['L']} landmarks, {result['observations']} observations")
+          f"{images}, {result['L']} landmarks, "
+          f"{result['observations']} observations")
     for k in phases:
         print(f"  {k} {result[k]:.4f} (mean of {reps})")
     print(f"  {tries} tries: wall {prof['wall_ms']:.3f} ms"
@@ -323,18 +457,37 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--solver", default="mega",
-                    choices=("mega",) + FUSED_SOLVERS)
+                    choices=("mega",) + FUSED_SOLVERS + ("geo",))
     for k in ("K", "L", "H", "W"):
-        ap.add_argument(f"--{k}", type=int, default=EUROC[k])
-    ap.add_argument("--obs-per-lm", type=int, default=EUROC["obs_per_lm"])
+        ap.add_argument(f"--{k}", type=int)
+    ap.add_argument("--obs-per-lm", type=int)
     ap.add_argument("--long-tracks", type=int, default=EUROC["long_tracks"])
-    ap.add_argument("--family", default="chunk", choices=("chunk", "dense"))
+    ap.add_argument("--family", choices=("chunk", "dense"),
+                    help="default: dense for --solver geo, else chunk")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--tries", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=50,
+                    help="chained fixed steps timed by --solver geo")
     args = ap.parse_args(argv)
+    # sizes default to the workload of the solver profiled
+    sizes = GEO if args.solver == "geo" else EUROC
+    for k in ("K", "L", "H", "W", "obs_per_lm"):
+        if getattr(args, k) is None:
+            setattr(args, k, sizes.get(k))
+    if args.family is None:
+        args.family = "dense" if args.solver == "geo" else "chunk"
     device = devices.resolve(args.device)
     gpu = device.type == "cuda"
+    if args.solver == "geo":
+        result = profile_geo(args, device)
+        _report(result, [k for k in (
+            "build_ms", "payload_ms", "assembly_ms", "gram_ms",
+            "solve_lam_ms", "cholesky_ms", "fixed_step_ms",
+            "geo_lm_iters_per_s", "fixed_step_graph_ms",
+            "geo_lm_iters_per_s_graph") if k in result], result, args.tries,
+                args.reps)
+        return result
     if args.solver in FUSED_SOLVERS:
         result = profile_fused(args, device)
         _report(result, ("build_ms", "warp_ms", "sample_ms", "rj_ms",

@@ -24,9 +24,9 @@ import torch
 
 from photometric_bundle_adjustment_tpu_torch import interop
 from photometric_bundle_adjustment_tpu_torch.features import pair_matching
-from photometric_bundle_adjustment_tpu_torch.models import synthetic
+from photometric_bundle_adjustment_tpu_torch.models import geometric_ba, synthetic
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
-from photometric_bundle_adjustment_tpu_torch.ops import hamming, pba_mega
+from photometric_bundle_adjustment_tpu_torch.ops import geo_mega, hamming, pba_mega
 from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
 from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
@@ -542,3 +542,94 @@ def test_window_kernel_bit_identical(cuda, mode):
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     assert torch.equal(out.nan_to_num(), ref.nan_to_num())
     assert exp_roll.main(["--device", "cuda", mode]) == {mode: True}
+
+
+def _geo_problem(device, dtype, heavy=False):
+    """``synth_ba_problem`` at toy size; ``heavy`` cuts most landmarks to
+    one observation (valid 0), the chunk branch of ``_accel_plan``."""
+    problem, _, _ = synthetic.synth_ba_problem(
+        "pinhole", K=12, L=96, obs_per_landmark=4, pixel_noise=0.5, seed=3,
+        dtype=dtype, device=device)
+    if heavy:
+        valid = problem.obs.valid.clone()
+        slot = torch.arange(valid.shape[0], device=device) // 96
+        valid[(problem.obs.landmark >= 4) & (slot > 0)] = 0
+        problem = problem._replace(obs=problem.obs._replace(valid=valid))
+    return problem
+
+
+def _geo_builds(device, dtype):
+    """The geometric builds, each a function of no argument."""
+    problem = _geo_problem(device, dtype)
+    prob_d, plan_d = fused.densify_problem(problem, pow2_buckets=False)
+    plan = fused.plan_for_problem(problem, pow2_buckets=False)
+    chunk = geo_mega.make_geo_solver("pinhole", problem, device=device)
+    dense = geo_mega.make_geo_solver("pinhole", prob_d, plan_d, device=device)
+    fs = geometric_ba.make_fused_solver("pinhole")
+    cfg = ba.BAConfig()
+    return {
+        "build_geo": lambda: chunk.build(problem, cfg),
+        "build_geo_dense2": lambda: dense.build(prob_d, cfg),
+        "fused_chunk": lambda: fs.build(problem, plan, cfg),
+        "fused_dense": lambda: fs.build(prob_d, plan_d, cfg),
+    }
+
+
+@pytest.mark.parametrize("build", ["build_geo", "build_geo_dense2",
+                                   "fused_chunk", "fused_dense"])
+def test_geo_builds_repeat_bit_for_bit_and_match_cpu(cuda, build):
+    """Two geometric builds on the card are bit-equal, and agree with the
+    CPU's f64 build of the same problem at the port's f32 tolerances (cost
+    rtol 2e-4, pieces atol 3e-3 x max|ref| with rtol 2e-3)."""
+    run = _geo_builds(cuda, torch.float32)[build]
+    c1, neq1 = run()
+    c2, neq2 = run()
+    assert torch.equal(c1, c2)
+    assert all(torch.equal(a, b) for a, b in zip(neq1, neq2))
+    c_ref, neq_ref = _geo_builds("cpu", torch.float64)[build]()
+    np.testing.assert_allclose(float(c1), float(c_ref), rtol=2e-4)
+    for a, b in zip(neq1, neq_ref):
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().double().numpy(), b, rtol=2e-3,
+                                   atol=3e-3 * np.abs(b).max())
+
+
+def test_geo_forward_mode_rj_on_card(cuda):
+    """The forward-mode Jacobian (``rj_fn=None``) on the card against the
+    closed form there and against the CPU's f64 forward mode."""
+    res_fn = geometric_ba.make_residual_fn("ds")
+    out = {}
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        p = _geo_problem(dev, dtype)
+        o = p.obs
+        args = (p.cam_states[o.anchor_cam], p.cam_states[o.target_cam],
+                p.inv_depth[o.landmark], o.aux)
+        out[dtype] = ba.forward_mode_rj(res_fn, geometric_ba.cam_retract,
+                                        6)(*args)
+        if dtype == torch.float32:
+            closed = geometric_ba.make_rj_fn("ds")(*args)
+    (r, J), (r64, J64) = out[torch.float32], out[torch.float64]
+    scale = float(J64.abs().max())
+    np.testing.assert_allclose(J.cpu().numpy(), closed[1].cpu().numpy(),
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(J.cpu().double().numpy(), J64.numpy(),
+                               atol=1e-3 * scale)
+    np.testing.assert_allclose(r.cpu().double().numpy(), r64.numpy(),
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+def test_geo_bundle_adjustment_on_card_matches_cpu(cuda, heavy):
+    """``bundle_adjustment`` on both ``_accel_plan`` branches in f32 on the
+    card against the CPU's f64 solve: the cost falls, final costs agree to
+    rtol 1e-3."""
+    runs = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        p = _geo_problem(dev, dtype, heavy)
+        _, plan = geometric_ba._accel_plan(p)
+        assert isinstance(plan, fused.DenseLmSchurPlan) != heavy
+        _, res = geometric_ba.bundle_adjustment(
+            p, "pinhole", ba.BAConfig(max_iterations=10))
+        assert float(res.cost) < float(res.initial_cost)
+        runs.append(float(res.cost))
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-3)

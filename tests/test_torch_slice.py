@@ -118,6 +118,24 @@ def test_port_imports_and_solves_without_jax():
             table, sfm.cfg.max_matches_per_pair)
         assert sum(len(m["matches"]) for m in sfm.matches.values()) > 0
         assert int(count.sum()) > 0
+        from photometric_bundle_adjustment_tpu_torch import entry
+        from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+        from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
+        from photometric_bundle_adjustment_tpu_torch.optim.lm import lm_solve
+        gp, _, _ = synthetic.synth_ba_problem(K=6, L=32, pixel_noise=0.5,
+                                              device="cpu")
+        _, r = geometric_ba.bundle_adjustment(gp, "pinhole",
+                                              ba.BAConfig(max_iterations=3))
+        assert float(r.cost) < float(r.initial_cost), r
+        gd, gplan = fused.densify_problem(gp, pow2_buckets=False)
+        _, r = geo_mega.make_geo_solver("pinhole", gd, gplan, device="cpu")(
+            gd, ba.BAConfig(max_iterations=3))
+        assert float(r.cost) < float(r.initial_cost), r
+        step, (ep,) = entry.entry(device="cpu")
+        assert bool(torch.isfinite(step(ep)[0]))
+        T, r = lm_solve(lambda x: x - 2.0, torch.zeros(3, dtype=torch.float64),
+                        lambda x, d: x + d, 3)
+        assert float(r.cost) < 1e-20, r
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "photometric_bundle_adjustment_tpu"
                or m.startswith("photometric_bundle_adjustment_tpu.")]
@@ -192,6 +210,16 @@ def _entry_point_calls():
     )
 
     prob_d, plan_d = fused.densify_problem(problem)
+    from photometric_bundle_adjustment_tpu_torch import entry
+    from photometric_bundle_adjustment_tpu_torch.io import calib_io
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+    from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
+
+    gp, _, _ = synthetic.synth_ba_problem(K=4, L=8, device="cpu")
+    gp_d, gplan_d = fused.densify_problem(gp)
+    gp_np = interop.problem_to_numpy(gp)
+    map_dict = {"cameras": {(0, 0): np.r_[0.0, 0, 0, 0, 0, 0, 1]},
+                "landmarks": {}}
     return {
         "make_fused_solver": lambda: pba.make_fused_solver(
             "ds", images_flat, H, W),
@@ -218,6 +246,23 @@ def _entry_point_calls():
         "SfmPipeline": lambda: SfmPipeline(pipe.images, pipe.calib),
         "descriptors_from_numpy": lambda: interop.descriptors_from_numpy(
             np.zeros((2, 8), np.uint32)),
+        "synth_ba_problem": lambda: synthetic.synth_ba_problem(K=4, L=8),
+        "geometric_build_problem": lambda: geometric_ba.build_problem(
+            gp_np.cam_states, gp_np.inv_depth, gp_np.obs.anchor_cam,
+            gp_np.obs.target_cam, gp_np.obs.landmark, *gp_np.obs.aux,
+            gp_np.obs.valid, gp_np.fixed_cams),
+        "geometric_problem_from_numpy": lambda:
+            interop.geometric_problem_from_numpy(
+                interop.problem_to_numpy(gp), "cuda"),
+        "make_geo_solver": lambda: geo_mega.make_geo_solver("pinhole", gp),
+        "make_geo_solver_dense": lambda: geo_mega.make_geo_solver(
+            "pinhole", gp_d, gplan_d),
+        "photometric_make_solver": lambda: pba.make_solver(
+            "ds", images_flat, H, W),
+        "entry": lambda: entry.entry(),
+        "from_map": lambda: SfmPipeline.from_map(
+            map_dict, {(0, 0): {"uv": np.zeros((1, 2))}},
+            calib_io.Calibration(np.zeros((2, 7)), np.zeros((2, 8)), ["ds"])),
     }
 
 
@@ -227,7 +272,9 @@ def _entry_point_calls():
     "make_mega_solver_dense", "grid_overhead", "exp_roll",
     "synth_pba_problem", "wide_image_state", "synth_stereo_sequence",
     "SfmPipeline",
-    "descriptors_from_numpy"])
+    "descriptors_from_numpy", "synth_ba_problem", "geometric_build_problem",
+    "geometric_problem_from_numpy", "make_geo_solver",
+    "make_geo_solver_dense", "photometric_make_solver", "entry", "from_map"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
@@ -275,6 +322,30 @@ def test_profile_solve_mega_families_on_plain_path(family, bf16):
     else:
         assert res["columns"] == res["observations"] + 1
     for k in ("build_ms", "megakernel_ms", "solve_lam_ms", "wall_ms"):
+        assert np.isfinite(res[k]) and res[k] > 0, k
+    assert np.isfinite(res["assembly_ms"])
+    assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
+
+
+@pytest.mark.parametrize("family", ["dense", "chunk"])
+def test_profile_solve_geo_on_plain_path(family):
+    """``--solver geo`` profiles the geometric solver (the payload plane,
+    assembly, Gram, damped solve, Cholesky and bench.py's fixed step) on
+    ``synth_ba_problem``, here at toy size on the CPU."""
+    from photometric_bundle_adjustment_tpu_torch import profile_solve
+
+    res = profile_solve.main([
+        "--device", "cpu", "--solver", "geo", "--family", family, "--K", "8",
+        "--L", "64", "--obs-per-lm", "4", "--tries", "2", "--reps", "2",
+        "--steps", "3"])
+    assert (res["solver"], res["family"], res["K"], res["L"]) == (
+        "geo", family, 8, 64)
+    assert res["observations"] == 64 * 4
+    # every slot is filled, so both layouts append one zero column
+    assert res["columns"] == res["rows"] + 1 == 64 * 4 + 1
+    for k in ("build_ms", "payload_ms", "gram_ms", "solve_lam_ms",
+              "cholesky_ms", "fixed_step_ms", "geo_lm_iters_per_s",
+              "wall_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
     assert np.isfinite(res["assembly_ms"])
     assert res["device_busy_ms"] is None and res["peak_device_mib"] is None
