@@ -89,7 +89,29 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      position RMSE against the reference run's map before and after;
      (c) ``entry()``, the non-fused photometric ``make_solver`` and
      ``lm_solve`` on the SE3 fit of the reference's test, on the card.
-     No kernel of the port launches in this phase.
+     No kernel of the port launches in this phase;
+  8. RANSAC on the card, no kernel of its own (the JAX package computes
+     it in XLA), on phase 3's pipeline: ``SfmPipeline.match_all`` over
+     all 13,284 pairs (one Hamming launch, then the five-point RANSAC of
+     each pair, 128 hypotheses, in f64, in chunks sized by memory), with
+     its wall time cold and warm (a second call), pairs per second
+     (``match_all_pairs_per_s``, warm), chunks, peak memory and, from
+     ``torch.profiler`` over one chunk's call, the device's busy share and
+     kernels per chunk; the successful pairs
+     against the ground truth (rotation error and the angle between the
+     translation directions, median and 95th percentile, the median
+     rotation error at most ``RANSAC_ROT_MEDIAN``; the share of inliers
+     within ``GT_PX`` of the true correspondence at least ``GT_SHARE``);
+     ``ransac_relative_pose`` on 64 pairs of the worklist on the card and
+     on the CPU with the same injected samples (inlier masks differing in
+     at most ``RANSAC_MASK_SHARE`` of their entries; the refinement
+     from the CPU's best hypothesis and inliers reaching translation
+     directions within ``RANSAC_DIR_RAD`` on both); and ``ransac_pnp`` (P3P, 512
+     hypotheses, 2 locally optimised rounds) on all 164 cameras at once,
+     up to 512 detected corners each, every corner's world point where
+     its ray meets the room, 30% of the bearings replaced by outliers
+     from a seeded generator (median pose error at most
+     ``PNP_POSE_MEDIAN``).
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
@@ -172,6 +194,19 @@ MAP_POSE_NOISE, MAP_DEPTH_NOISE, SEED_MAP = 2e-3, 1e-2, 0
 FRONT_FRAMES, FRONT_H, FRONT_W = 82, 480, 752
 CORNERS_MEDIAN = (300, 500)
 GT_PX, GT_SHARE = 2.0, 0.8
+# phase 8: RANSAC.  match_all's median relative rotation error over the
+# successful pairs (rad); the card against the CPU on RANSAC_PAIRS pairs
+# with the same samples: the share of inlier-mask entries that may
+# differ, and the angle between the translation directions (rad) that the
+# refinement reaches on both from the same hypothesis and inliers.  The
+# whole RANSAC's directions are printed: a rounding flip at a threshold
+# picks another hypothesis or inlier, and a short baseline leaves the
+# translation nearly free, so the refined directions of such a pair end
+# up to 2e-2 rad apart.  PnP on every image with PNP_OUTLIERS of its
+# bearings replaced, its median pose error
+RANSAC_ROT_MEDIAN, RANSAC_PAIRS = 1e-2, 64
+RANSAC_MASK_SHARE, RANSAC_DIR_RAD = 1e-3, 1e-6
+PNP_CORNERS, PNP_OUTLIERS, PNP_POSE_MEDIAN = 512, 0.3, 1e-3
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -1297,7 +1332,255 @@ def front_end_phase(device, b1_rate):
           f"{bound_ms / ms:.1%} of it")
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                library_ms=library_ms), pipe, seq
+
+
+def pose_error_stats(matches, keys, poses_gt, se3):
+    """Rotation errors (rad) and angles between the translation
+    directions (rad) of the relative poses ``matches[k]["T_i_j"]`` of the
+    pairs ``keys`` against ground truth."""
+    f64 = torch.float64
+    T = torch.as_tensor(np.stack([matches[k]["T_i_j"] for k in keys]),
+                        dtype=f64)
+    Ta = torch.as_tensor(np.stack([poses_gt[a] for a, _ in keys]), dtype=f64)
+    Tb = torch.as_tensor(np.stack([poses_gt[b] for _, b in keys]), dtype=f64)
+    T_gt = se3.compose(se3.inverse(Ta), Tb)
+    rot = torch.linalg.norm(se3.so3_log(se3.quat_mul(
+        se3.quat_conj(se3.rotation(T)), se3.rotation(T_gt))), dim=-1)
+    t_gt = se3.translation(T_gt)
+    cos = torch.sum(se3.translation(T) * t_gt, -1) / (
+        torch.linalg.norm(se3.translation(T), dim=-1)
+        * torch.linalg.norm(t_gt, dim=-1))
+    return rot.numpy(), torch.arccos(torch.clamp(cos, -1.0, 1.0)).numpy()
+
+
+def direction_angles(Ta, Tb, se3) -> torch.Tensor:
+    """Angles (rad) between the translation directions of poses Ta and Tb
+    (B, 7)."""
+    ta, tb = se3.translation(Ta), se3.translation(Tb)
+    cos = torch.sum(ta * tb, -1) / (torch.linalg.norm(ta, dim=-1)
+                                    * torch.linalg.norm(tb, dim=-1))
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def relative_conditioning(b0, b1, inl, T, se3) -> torch.Tensor:
+    """Condition number (B,) of each pair's refinement at its pose T: the
+    largest eigenvalue of J^T J of ``ransac.relative_residual`` over the
+    second smallest (the smallest is the translation's scale, which the
+    residual does not see)."""
+    from photometric_bundle_adjustment_tpu_torch.features import ransac
+
+    out = []
+    for i in range(T.shape[0]):
+        res = ransac.relative_residual(b0[i:i + 1], b1[i:i + 1], inl[i:i + 1])
+        J = torch.func.jacfwd(lambda d: res(se3.right_plus(
+            T[i:i + 1], d[None]))[0])(torch.zeros(6, dtype=T.dtype))
+        ev = torch.linalg.eigvalsh(J.T @ J)
+        out.append(ev[-1] / ev[1])
+    return torch.stack(out)
+
+
+def ransac_phase(pipe, seq, device, se3) -> int:
+    """Phase 8: match_all with RANSAC over the whole worklist, against
+    ground truth, the card against the CPU, and PnP on every image.
+    Returns the Hamming launches of match_all."""
+    from photometric_bundle_adjustment_tpu_torch.core import cameras
+    from photometric_bundle_adjustment_tpu_torch.features import (
+        match,
+        nister,
+        pair_matching,
+        ransac,
+    )
+    from photometric_bundle_adjustment_tpu_torch.optim.ba import full_f32
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        profile_run,
+    )
+
+    cfg = pipe.cfg
+    P = len(pipe._pair_worklist())
+    print(f"phase 8: RANSAC. (a) SfmPipeline.match_all over {P} pairs, "
+          f"{cfg.ransac_hypotheses} five-point hypotheses a pair, f64")
+    # the main path, counts from 0
+    reset_counts()
+    done = dict(pipe.counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    pipe.match_all()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = hamming.KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    chunks = pipe.counters["match_chunks"] - done.get("match_chunks", 0)
+    check(pipe.counters["match_pairs"] - done.get("match_pairs", 0) == P,
+          "match_all skipped pairs")
+    check(launches == 1, f"match_all launched the Hamming kernel "
+          f"{launches} times, not once")
+    # a second call, warm (the generator draws on: other samples)
+    t0 = time.perf_counter()
+    pipe.match_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    C = -(-P // chunks)
+    print(f"  match_all: {wall:.3f} s warm, match_all_pairs_per_s "
+          f"{P / wall:.1f} (the first call {cold:.3f} s, {P / cold:.1f}/s); "
+          f"{chunks} RANSAC chunks of {C} pairs on average; Hamming launches "
+          f"{launches} in the first call; peak {peak:.1f} MiB")
+
+    # (b) the successful pairs against the ground truth
+    keys = [(pipe.fcids[a], pipe.fcids[b]) for a, b in pipe._pair_worklist()]
+    ok = [k for k in keys if len(pipe.matches[k]["inliers"])]
+    n_inl = sum(len(pipe.matches[k]["inliers"]) for k in ok)
+    check(len(ok) > 0, "no pair passed RANSAC")
+    rot, ang = pose_error_stats(pipe.matches, ok, seq.poses_gt, se3)
+    image = {k: i for i, k in enumerate(sorted(seq.poses_gt))}
+    src, dst, uv_a, uv_b = [], [], [], []
+    for a, b in ok:
+        inl = pipe.matches[(a, b)]["inliers"]
+        src.append(np.full(len(inl), image[a]))
+        dst.append(np.full(len(inl), image[b]))
+        uv_a.append(pipe.corners[a]["uv"][inl[:, 0]])
+        uv_b.append(pipe.corners[b]["uv"][inl[:, 1]])
+    uv_t, front = seq.correspondences(
+        np.concatenate(src), np.concatenate(dst),
+        torch.as_tensor(np.concatenate(uv_a), device=device))
+    close = int(((np.linalg.norm(uv_t - np.concatenate(uv_b), axis=1)
+                  <= GT_PX) & front).sum())
+    share = close / n_inl
+    print(f"  (b) {len(ok)} of {P} pairs succeeded, {n_inl} inliers; "
+          f"rotation error median {np.median(rot):.3e}, p95 "
+          f"{np.percentile(rot, 95):.3e} rad; translation direction median "
+          f"{np.median(ang):.3e}, p95 {np.percentile(ang, 95):.3e} rad; "
+          f"inliers within {GT_PX} px of the true correspondence: {close} "
+          f"of {n_inl} ({share:.1%})")
+    check(np.median(rot) <= RANSAC_ROT_MEDIAN,
+          f"median rotation error {np.median(rot):.3e} rad")
+    check(share >= GT_SHARE, f"only {share:.1%} of the inliers on the "
+          f"ground truth")
+
+    # the device's busy share over one chunk's call (the Hamming match,
+    # the compaction and one RANSAC chunk)
+    sub = pipe._pair_worklist()[:C]
+    n0 = pipe.counters["match_chunks"]
+    prof = profile_run(lambda: pipe._run_pair_matching(sub), 1, device)
+    n_sub = pipe.counters["match_chunks"] - n0
+    print(f"  {len(sub)} pairs ({n_sub} chunk) under the profiler: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f}%), "
+          f"{prof['device_kernels_per_run'] / n_sub:.0f} device kernels a "
+          f"chunk")
+    for op, (count, t) in list(prof["top_self_ms"].items())[:5]:
+        print(f"    {op[:100]}: {t:.3f} ms over {count} calls")
+
+    # (c) the card against the CPU on the same samples
+    ids = np.array(pipe._pair_worklist())
+    _, valid, desc, bear = pipe._stack_features()
+    pairs, pvalid, count = match.matches_to_pairs(pair_matching.match_pairs(
+        desc, valid, ids[:, 0], ids[:, 1], cfg.feature_match_max_dist,
+        cfg.feature_match_test_next_best), cfg.max_matches_per_pair)
+    cand = np.nonzero(count.cpu().numpy()
+                      > cfg.relative_pose_ransac_min_inliers)[0]
+    sel = cand[np.linspace(0, len(cand) - 1, RANSAC_PAIRS).astype(int)]
+    sel_d = torch.as_tensor(sel, device=device)
+    i1 = torch.as_tensor(ids[sel, 0], device=device)
+    i2 = torch.as_tensor(ids[sel, 1], device=device)
+    b0 = bear[i1[:, None], pairs[sel_d, :, 0].long()]
+    b1 = bear[i2[:, None], pairs[sel_d, :, 1].long()]
+    pv = pvalid[sel_d]
+    idx = ransac._sample_indices(torch.Generator().manual_seed(0),
+                                 cfg.ransac_hypotheses, 5, pv.cpu())
+    kw = dict(threshold=cfg.relative_pose_ransac_thresh,
+              min_inliers=cfg.relative_pose_ransac_min_inliers,
+              num_hypotheses=cfg.ransac_hypotheses)
+    t0 = time.perf_counter()
+    Tg, inl_g, _ = ransac.ransac_relative_pose(b0, b1, pv, idx=idx.to(device),
+                                               **kw)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    Tc, inl_c, _ = ransac.ransac_relative_pose(b0.cpu(), b1.cpu(), pv.cpu(),
+                                               idx=idx, **kw)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    inl_g = inl_g.cpu()
+    diff = float((inl_g != inl_c).double().mean())
+    same = (inl_g == inl_c).all(-1)
+    ang = direction_angles(Tg.cpu(), Tc, se3)
+    cond = relative_conditioning(b0.cpu(), b1.cpu(), inl_c, Tc, se3)
+    # the refinement alone, from the CPU's best hypothesis and its inliers
+    with full_f32():
+        b0c, b1c, pvc = b0.cpu(), b1.cpu(), pv.cpu()
+        Es, ev = nister.five_point_candidates(ransac._gather_rows(b0c, idx),
+                                              ransac._gather_rows(b1c, idx))
+        T0, w0 = ransac._best_relative(b0c, b1c, pvc, ransac._prescreen(
+            b0c, b1c, pvc, Es, ev), kw["threshold"])
+        Tr = [ransac._refine_relative(x0, x1, w, T0.to(x0.device), 10).cpu()
+              for x0, x1, w in ((b0, b1, w0.to(device)), (b0c, b1c, w0))]
+    ang_lm = direction_angles(*Tr, se3)
+    print(f"  (c) {RANSAC_PAIRS} pairs on the card ({card_ms:.1f} ms) and the "
+          f"CPU ({cpu_ms:.1f} ms), same samples: {diff:.3%} of the inlier "
+          f"entries differ ({int(same.sum())} pairs with equal masks); "
+          f"translation directions within {RANSAC_DIR_RAD:.0e} rad on "
+          f"{int((ang <= RANSAC_DIR_RAD).sum())} pairs, at most "
+          f"{float(ang.max()):.3e} (at equal masks {float(ang[same].max()):.3e}"
+          f"); refinement conditioned {float(cond.min()):.1e} to "
+          f"{float(cond.max()):.1e}")
+    print(f"      the refinement alone from the CPU's best hypothesis on both: "
+          f"translation directions within {float(ang_lm.max()):.3e} rad")
+    check(diff <= RANSAC_MASK_SHARE, f"{diff:.3%} of the inlier entries "
+          f"differ between the card and the CPU")
+    check(float(ang_lm.max()) <= RANSAC_DIR_RAD, f"refined translation "
+          f"directions {float(ang_lm.max()):.3e} rad apart on the card and "
+          f"the CPU")
+
+    # (d) PnP on every image: bearings of its corners, the room points
+    # their rays meet, PNP_OUTLIERS of the bearings replaced
+    gen = torch.Generator(device=device).manual_seed(0)
+    f64 = torch.float64
+    n_k = np.array([min(PNP_CORNERS, int(pipe.corners[k]["valid"].sum()))
+                    for k in pipe.fcids])
+    F, K = int(n_k.max()), len(pipe.fcids)
+    uv = torch.as_tensor(np.stack([pipe.corners[k]["uv"][:F]
+                                   for k in pipe.fcids]), dtype=f64,
+                         device=device)
+    # detection fills its slots valid first: the first n_k rows of each
+    valid_p = (torch.arange(F, device=device)[None]
+               < torch.as_tensor(n_k, device=device)[:, None])
+    intr = torch.as_tensor(np.asarray(pipe.calib.intrinsics), dtype=f64,
+                           device=device)
+    cam = torch.as_tensor([c for _, c in pipe.fcids], device=device)
+    f = cameras.unproject_unit(pipe.model, intr[cam][:, None], uv)
+    image = {k: i for i, k in enumerate(sorted(seq.poses_gt))}
+    p_w = seq.world_points(np.repeat([image[k] for k in pipe.fcids], F),
+                           uv.reshape(-1, 2)).reshape(K, F, 3)
+    bad = torch.rand((K, F), generator=gen, device=device) < PNP_OUTLIERS
+    rnd = torch.randn((K, F, 3), generator=gen, device=device, dtype=f64)
+    rnd[..., 2] = rnd[..., 2].abs() + 0.5
+    f = torch.where(bad[..., None], rnd / torch.linalg.norm(
+        rnd, dim=-1, keepdim=True), f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T_w_c, inl = ransac.ransac_pnp(f, p_w, valid_p, gen, num_hypotheses=512,
+                                   lo_rounds=2, solver="p3p")
+    torch.cuda.synchronize()
+    pnp_ms = 1e3 * (time.perf_counter() - t0)
+    T_gt = torch.as_tensor(np.stack([seq.poses_gt[k] for k in pipe.fcids]),
+                           dtype=f64, device=device)
+    err = torch.linalg.norm(se3.log(se3.compose(se3.inverse(T_gt), T_w_c)),
+                            dim=-1).cpu().numpy()
+    bad = bad & valid_p
+    good = valid_p & ~bad
+    recall = float((inl & good).sum() / good.sum())
+    kept_bad = float((inl & bad).sum() / bad.sum())
+    print(f"  (d) ransac_pnp on {K} cameras x {n_k.min()} to {F} corners "
+          f"({PNP_OUTLIERS:.0%} "
+          f"outliers), P3P, 512 hypotheses, 2 LO rounds: {pnp_ms:.1f} ms; "
+          f"pose error median {np.median(err):.3e}, max {err.max():.3e}; "
+          f"inlier recall {recall:.2%}, outliers kept {kept_bad:.2%}")
+    check(np.median(err) <= PNP_POSE_MEDIAN,
+          f"PnP median pose error {np.median(err):.3e}")
+    return launches
 
 
 def kernel_counts() -> dict:
@@ -1668,11 +1951,12 @@ def main() -> int:
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
     max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
-    front = front_end_phase(device, rates["b1"])
+    front, seq_pipe, seq = front_end_phase(device, rates["b1"])
     sampler = sampler_phase(pipe0, device, se3)
     bf16 = dense_phase(pipe5, device, se3)
     grid, window = probe_phase(device)
     geo_phase(device, card, se3)
+    front["launches"] += ransac_phase(seq_pipe, seq, device, se3)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",

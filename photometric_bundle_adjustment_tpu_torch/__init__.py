@@ -10,13 +10,17 @@ The package mirrors the module paths of ``photometric_bundle_adjustment_tpu``
                 projection with its analytic Jacobian.
 - ``features``  Shi-Tomasi detection, rotated BRIEF descriptors, Hamming
                 matching with the ratio test and mutual check, all-pairs
-                matching over a pair worklist, the epipolar test.
+                matching over a pair worklist, two-view geometry, the
+                five-point (``nister``) and P3P (``p3p``) minimal solvers,
+                batched relative-pose and PnP RANSAC (``ransac``), the
+                pair matcher's RANSAC half, bag-of-words (``bow``).
 - ``optim``     the BA types, the scatter-add reference step, Schur solve
                 and solver (``ba``), the shared LM loops, the host-side
                 chunk plans, the plan-based fused solver with the
                 forward-mode Jacobian default (``fused``), the fixed-order
                 sums (``tree_sum``) that make a build repeat bit for bit,
-                and the generic manifold LM (``lm``).
+                and the generic manifold LM (``lm``, with a batched form
+                for RANSAC's refinements).
 - ``models``    the photometric problem, samplers, image pyramid and
                 solvers; the geometric (reprojection) problem, its
                 closed-form Jacobian and ``bundle_adjustment``
@@ -29,10 +33,12 @@ The package mirrors the module paths of ``photometric_bundle_adjustment_tpu``
                 version, and the kernel builder; the plane-layout
                 geometric builds (``geo_mega``, no kernel).
 - ``pipeline``  ``refine_photometric`` (coarse-to-fine photometric BA of a
-                map), ``SfmPipeline``'s front-end stages, a saved map
-                (``from_map``) and its geometric BA problem, and
-                ``SfmConfig``.
-- ``io``        the calibration JSON loader (``calib_io``).
+                map), ``SfmPipeline``'s front-end stages (detection,
+                stereo matching, ``match_all`` and ``match_bow`` with
+                RANSAC), a saved map (``from_map``) and its geometric BA
+                problem, and ``SfmConfig``.
+- ``io``        the calibration JSON loader (``calib_io``), the reference's
+                binary-cereal artifacts (``cereal_io``).
 - ``utils``     Umeyama alignment and trajectory error (``evaluation``).
 - ``entry``     the compile-check step of the flagship model.
 

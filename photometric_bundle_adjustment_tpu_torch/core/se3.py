@@ -90,6 +90,43 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_from_matrix(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4).
+
+    The four-candidate construction: each candidate is computed, and the
+    one with the largest pivot is taken (the first on ties, as
+    ``jnp.argmax``)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=0.0)) / 2.0
+
+    qw_ = half_sqrt(1.0 + tr)
+    qx_ = half_sqrt(1.0 + m00 - m11 - m22)
+    qy_ = half_sqrt(1.0 - m00 + m11 - m22)
+    qz_ = half_sqrt(1.0 - m00 - m11 + m22)
+
+    def over(num, q):
+        return num / torch.clamp(4 * q, min=1e-30)
+
+    cw = torch.stack([over(m21 - m12, qw_), over(m02 - m20, qw_),
+                      over(m10 - m01, qw_), qw_], dim=-1)
+    cx = torch.stack([qx_, over(m01 + m10, qx_), over(m02 + m20, qx_),
+                      over(m21 - m12, qx_)], dim=-1)
+    cy = torch.stack([over(m01 + m10, qy_), qy_, over(m12 + m21, qy_),
+                      over(m02 - m20, qy_)], dim=-1)
+    cz = torch.stack([over(m02 + m20, qz_), over(m12 + m21, qz_), qz_,
+                      over(m10 - m01, qz_)], dim=-1)
+    idx = torch.argmax(torch.stack([qw_, qx_, qy_, qz_], dim=-1), dim=-1)
+    cands = torch.stack([cw, cx, cy, cz], dim=-2)          # (..., 4, 4)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(
+        idx.shape + (1, 4)))[..., 0, :]
+    return quat_normalize(q)
+
+
 # ---------------------------------------------------------------------------
 # SO3 exp / log
 # ---------------------------------------------------------------------------

@@ -96,3 +96,15 @@ def features_to_numpy(feats: dict) -> dict:
     return {k: (descriptors_to_numpy(v) if k == "desc"
                 else v.detach().cpu().numpy())
             for k, v in feats.items()}
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def matches_to_numpy(matches: dict) -> dict:
+    """A copy of a pipeline's ``matches`` ({(fcid_a, fcid_b): {"T_i_j",
+    "matches", "inliers"}}, either package's) with numpy values."""
+    return {k: {name: np.asarray(v) for name, v in md.items()}
+            for k, md in matches.items()}

@@ -522,19 +522,50 @@ class SynthSequence:
         """Pixels (N, 2) of image ``src`` mapped to image ``dst`` through
         the rendered room: unproject, intersect the room sphere, project.
         Returns (uv_dst (N, 2), in_front (N,) bool)."""
+        keys = sorted(self.poses_gt)
+        n = len(uv)
+        return self.correspondences(np.full(n, keys.index(src)),
+                                    np.full(n, keys.index(dst)), uv)
+
+    def world_points(self, src, uv) -> torch.Tensor:
+        """The room points (N, 3) that pixels ``uv`` (N, 2) of the images
+        ``src`` (N,) see, images indexed in (frame, cam) order; float64 on
+        the device of ``uv`` (a tensor) or the CPU."""
         f64 = torch.float64
+        uv = torch.as_tensor(uv, dtype=f64)
+        dev = uv.device
+        keys = sorted(self.poses_gt)
+        src = torch.as_tensor(np.asarray(src), device=dev)
         model = self.calib.cam_types[0]
-        intr = torch.as_tensor(self.calib.intrinsics, dtype=f64)
-        T_s = torch.as_tensor(self.poses_gt[src], dtype=f64)
-        T_d = torch.as_tensor(self.poses_gt[dst], dtype=f64)
-        d = cameras.unproject_unit(model, intr[src[1]],
-                                   torch.as_tensor(uv, dtype=f64))
+        intr = torch.as_tensor(self.calib.intrinsics, dtype=f64, device=dev)
+        poses = torch.as_tensor(np.stack([self.poses_gt[k] for k in keys]),
+                                dtype=f64, device=dev)
+        cams = torch.as_tensor([k[1] for k in keys], device=dev)
+        T_s = poses[src]
+        d = cameras.unproject_unit(model, intr[cams[src]], uv)
         o = se3.translation(T_s)
         dw = se3.quat_rotate(se3.rotation(T_s), d)
-        p_w = o + _room_depth(o, dw, torch.as_tensor(self.center))[:, None] * dw
-        p_c = se3.act(se3.inverse(T_d), p_w)
-        uv_d = cameras.project(model, intr[dst[1]], p_c)
-        return uv_d.numpy(), (p_c[:, 2] > 0).numpy()
+        oc = o - torch.as_tensor(self.center, device=dev)
+        b = torch.sum(dw * oc, -1)
+        c = torch.sum(oc * oc, -1) - _ROOM_RADIUS**2
+        return o + (-b + torch.sqrt(b * b - c))[:, None] * dw
+
+    def correspondences(self, src, dst, uv):
+        """``correspondence`` row by row: pixel ``uv[i]`` of image
+        ``src[i]`` in image ``dst[i]``, images indexed in (frame, cam)
+        order.  Returns numpy (uv_dst (N, 2), in_front (N,) bool)."""
+        p_w = self.world_points(src, uv)
+        dev, f64 = p_w.device, p_w.dtype
+        keys = sorted(self.poses_gt)
+        dst = torch.as_tensor(np.asarray(dst), device=dev)
+        model = self.calib.cam_types[0]
+        intr = torch.as_tensor(self.calib.intrinsics, dtype=f64, device=dev)
+        poses = torch.as_tensor(np.stack([self.poses_gt[k] for k in keys]),
+                                dtype=f64, device=dev)
+        cams = torch.as_tensor([k[1] for k in keys], device=dev)
+        p_c = se3.act(se3.inverse(poses[dst]), p_w)
+        uv_d = cameras.project(model, intr[cams[dst]], p_c)
+        return uv_d.cpu().numpy(), (p_c[:, 2] > 0).cpu().numpy()
 
 
 # rays per pixel along each axis of the front-end sequence's rendering

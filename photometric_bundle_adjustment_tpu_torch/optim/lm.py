@@ -52,26 +52,29 @@ class LMResult(NamedTuple):
 def huber_weights(r: torch.Tensor, delta: float, block_size: int) -> torch.Tensor:
     """Per-residual IRLS weights sqrt(rho'(s)) for Huber rho on squared block
     norms s = ||r_block||^2; rho(s) = s for s <= delta^2 else
-    2 delta sqrt(s) - delta^2 (Ceres HuberLoss convention)."""
-    rb = r.reshape(-1, block_size)
+    2 delta sqrt(s) - delta^2 (Ceres HuberLoss convention).  Blocks run
+    along the last axis; leading axes are batch axes."""
+    rb = r.reshape(r.shape[:-1] + (-1, block_size))
     s = torch.sum(rb * rb, dim=-1)
     sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
     w = torch.where(s <= delta * delta, torch.ones_like(s), delta / sqrt_s)
-    return torch.sqrt(w).repeat_interleave(block_size)
+    return torch.sqrt(w).repeat_interleave(block_size, dim=-1)
 
 
 def huber_cost(r: torch.Tensor, delta: float, block_size: int) -> torch.Tensor:
-    rb = r.reshape(-1, block_size)
+    """0.5 sum rho(s) over the last axis of r."""
+    rb = r.reshape(r.shape[:-1] + (-1, block_size))
     s = torch.sum(rb * rb, dim=-1)
     sqrt_s = torch.sqrt(torch.clamp(s, min=1e-300))
     rho = torch.where(s <= delta * delta, s, 2.0 * delta * sqrt_s - delta * delta)
-    return 0.5 * torch.sum(rho)
+    return 0.5 * torch.sum(rho, dim=-1)
 
 
 def _cost_of(r: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The cost of the residuals along the last axis of r."""
     if cfg.huber_delta > 0:
         return huber_cost(r, cfg.huber_delta, cfg.block_size)
-    return 0.5 * torch.sum(r * r)
+    return 0.5 * torch.sum(r * r, dim=-1)
 
 
 def lm_solve(residual_fn: Callable, params, retract: Callable,
@@ -140,5 +143,115 @@ def lm_solve(residual_fn: Callable, params, retract: Callable,
         if (not accepted or gmax <= cfg.gradient_tolerance
                 or small_decrease or small_step):
             break
+    return p, LMResult(cost=cost, initial_cost=init_cost, iterations=it,
+                       lam=lam, grad_max=gmax)
+
+
+def lm_solve_batched(residual_fn: Callable, params: torch.Tensor,
+                     retract: Callable, tangent_dim: int,
+                     cfg: LMConfig = LMConfig(),
+                     fixed_mask: torch.Tensor | None = None):
+    """``lm_solve`` on B independent problems at once: what
+    ``jax.vmap(lm_solve)`` computes.
+
+    ``params`` (B, P), ``residual_fn`` (B, P) -> (B, R) row by row,
+    ``retract`` (B, P), (B, D) -> (B, P).  Every element keeps its own
+    lambda, cost, iteration count and done flag; an element whose loop
+    condition fails is frozen, as a vmapped ``while_loop`` freezes it.
+    The inner loop's up to 8 tries per element (lambda x4 on each
+    reject, while lambda <= max_lambda) do not depend on each other's
+    outcome but for the stop, so all 8 are evaluated at once (the solves
+    batched, the retraction and the residual vmapped over the try axis)
+    and each element takes its first accepted try, which is what
+    ``lm_solve`` re-takes; no try syncs the host.  Powers of 4 scale
+    lambda exactly, so the tried lambdas are ``lm_solve``'s.  The stop
+    tests are ``lm_solve``'s.  J comes from ``tangent_dim`` forward-mode
+    passes, vmapped over the tangent basis.  The host syncs once per
+    outer iteration, to stop when no element is left.
+
+    Returns ``(params (B, P), LMResult)`` with (B,) tensors as fields."""
+    D = tangent_dim
+    r0 = residual_fn(params)
+    B, dtype, dev = r0.shape[0], r0.dtype, r0.device
+    zeros = torch.zeros(B, D, dtype=dtype, device=dev)
+    free = (torch.ones(D, dtype=dtype, device=dev) if fixed_mask is None
+            else (~fixed_mask.to(dev)).to(dtype))
+    basis = torch.eye(D, dtype=dtype, device=dev)[:, None, :].expand(D, B, D)
+
+    def weighted_r_J(p):
+        r = residual_fn(p)
+
+        def column(t):
+            return torch.func.jvp(lambda d: residual_fn(retract(p, d)),
+                                  (zeros,), (t,))[1]
+
+        J = torch.func.vmap(column)(basis).permute(1, 2, 0)   # (B, R, D)
+        if cfg.huber_delta > 0:
+            w = huber_weights(r, cfg.huber_delta, cfg.block_size)
+            r = r * w
+            J = J * w[..., None]
+        return r, J * free
+
+    tries = 8
+    scale = 4.0 ** torch.arange(tries, dtype=dtype, device=dev)[:, None]
+
+    def try_steps(p, H, g, diag, lam):
+        """The 8 tries at lambda 4^k lam: (lambdas (8, B), params (8, B,
+        P), steps (8, B, D), costs (8, B))."""
+        lams = lam * scale
+        A = (H + torch.diag_embed(lams[..., None] * diag)
+             + torch.diag(1e-32 + (1.0 - free)))
+        rhs = g[..., None].expand(A.shape[:-1] + (1,))
+        delta = -torch.linalg.solve_ex(A, rhs)[0][..., 0] * free
+        p_try = torch.func.vmap(retract, in_dims=(None, 0))(p, delta)
+        cost = _cost_of(torch.func.vmap(residual_fn)(p_try), cfg)
+        return lams, p_try, delta, cost
+
+    rows = torch.arange(B, device=dev)
+    init_cost = _cost_of(r0, cfg)
+    p, cost = params, init_cost
+    lam = torch.full((B,), cfg.init_lambda, dtype=dtype, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    gmax = torch.full((B,), math.inf, dtype=dtype, device=dev)
+    for _ in range(cfg.max_iterations):
+        act = ~done & (it < cfg.max_iterations)
+        if not bool(act.any()):
+            break
+        r, J = weighted_r_J(p)
+        g = torch.einsum("brd,br->bd", J, r)
+        H = J.transpose(1, 2) @ J
+        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-12, 1e32)
+        gmax_new = torch.amax(torch.abs(g) * free, dim=-1)
+
+        # the inner loop: lambda raised until a try lowers the cost
+        # (bounded); the tries run while lambda <= max_lambda, and the
+        # first that lowers the cost is taken
+        lams, p_try, delta, new_cost = try_steps(p, H, g, diag, lam)
+        tried = lams <= cfg.max_lambda
+        ok = (new_cost < cost) & torch.isfinite(new_cost) & tried
+        accepted = ok.any(0)
+        k = torch.argmax(ok.to(torch.int8), dim=0)
+        lam_i = torch.where(accepted, lams[k, rows],
+                            lam * 4.0 ** tried.sum(0).to(dtype))
+        p_acc, delta_acc, acc_cost = p_try[k, rows], delta[k, rows], \
+            new_cost[k, rows]
+        cost_new = torch.where(accepted, acc_cost, cost)
+        small_decrease = torch.abs(cost - cost_new) <= (
+            cfg.function_tolerance * torch.clamp(cost, min=1e-300))
+        small_step = torch.linalg.norm(delta_acc, dim=-1) <= \
+            cfg.parameter_tolerance
+        done_new = (~accepted | (gmax_new <= cfg.gradient_tolerance)
+                    | (accepted & (small_decrease | small_step))
+                    | (it + 1 >= cfg.max_iterations))
+        take = act & accepted
+        p = torch.where(take[:, None], p_acc, p)
+        cost = torch.where(take, acc_cost, cost)
+        lam = torch.where(act, torch.where(
+            accepted, torch.clamp(lam_i / 4.0, min=cfg.min_lambda), lam_i),
+            lam)
+        gmax = torch.where(act, gmax_new, gmax)
+        done = torch.where(act, done_new, done)
+        it = it + act.to(it.dtype)
     return p, LMResult(cost=cost, initial_cost=init_cost, iterations=it,
                        lam=lam, grad_max=gmax)

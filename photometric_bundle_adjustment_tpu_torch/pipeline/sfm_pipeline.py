@@ -3,10 +3,21 @@
 Port of the first stages of ``photometric_bundle_adjustment_tpu/pipeline/
 sfm_pipeline.py`` (the reference's main program, src/sfm.cpp:1117-2131):
 detection and description of every image, then stereo matching with the
-epipolar check, and the worklist of all other image pairs.  Matching that
-worklist is ``features.pair_matching.match_pairs`` followed by
-``features.match.matches_to_pairs``, both on the device; the
-relative-pose RANSAC, tracks and the map stages come with later slices.
+epipolar check, then matching of every other image pair (``match_all``)
+or of the pairs a bag-of-words query proposes (``match_bow``), each pair
+verified by a relative-pose RANSAC.  Tracks and the map stages come with
+a later slice.
+
+``_run_pair_matching`` matches a whole worklist with one
+``pair_matching.match_pairs`` call (one Hamming kernel launch on the
+card) and one compaction (``match.matches_to_pairs``), then runs the
+RANSAC in chunks of pairs of similar match counts, each cut to the
+columns its largest count needs and sized by the device's memory,
+fetching each chunk's results in one copy.  RANSAC draws its samples from the
+pipeline's ``torch.Generator`` (``seed``), which stands in for the JAX
+package's key stream; the JAX package's CPU branch through its native
+C++ matcher is a CPU speed path and is not ported: on the CPU the port
+takes the Hamming kernel's plain version.
 
 A saved geometric map enters through ``SfmPipeline.from_map`` (cameras,
 tracks, landmarks and the cached corners, no images), and
@@ -42,6 +53,7 @@ from photometric_bundle_adjustment_tpu_torch.features import (
     describe,
     geometry,
     match,
+    pair_matching,
 )
 from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
 from photometric_bundle_adjustment_tpu_torch.pipeline.config import SfmConfig
@@ -71,6 +83,31 @@ class Landmark:
         return keys, feats
 
 
+# the share of the card's memory that one RANSAC chunk's prescreen (10
+# candidates x hypotheses x matches per pair, in the bearings' dtype) may
+# take, and the bytes it may take on the CPU
+RANSAC_MEMORY_SHARE = 1 / 8
+RANSAC_CPU_BYTES = 1 << 28
+
+
+def _fetch(*tensors):
+    """Tensors with a common leading axis, copied to the host in one copy
+    (their bytes side by side); numpy arrays of their shapes and
+    dtypes."""
+    rows = tensors[0].shape[0]
+    parts = [t.contiguous().view(torch.uint8).reshape(rows, -1)
+             for t in tensors]
+    blob = torch.cat(parts, dim=1).cpu().numpy()
+    out, at = [], 0
+    for t, part in zip(tensors, parts):
+        w = part.shape[1]
+        dt = interop.numpy_dtype(t.dtype)
+        out.append(np.ascontiguousarray(blob[:, at:at + w]).view(dt)
+                   .reshape(tuple(t.shape)))
+        at += w
+    return out
+
+
 def _stereo_geometry(T_c0: torch.Tensor, T_c1: torch.Tensor):
     """Stereo extrinsics T_0_1 and the essential matrix of the pair."""
     T_0_1 = se3.compose(se3.inverse(T_c0), T_c1)
@@ -79,8 +116,11 @@ def _stereo_geometry(T_c0: torch.Tensor, T_c1: torch.Tensor):
 
 class SfmPipeline:
     def __init__(self, images: dict, calib, cfg: SfmConfig = SfmConfig(),
-                 log=print, *, device="cuda"):
+                 log=print, *, seed: int = 0, device="cuda"):
         self.device = devices.resolve(device)
+        # RANSAC's samples: the stand-in for the JAX package's key stream
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
         self.images = images          # {(frame, cam): (H, W) uint8}
         self.calib = calib            # .intrinsics, .cam_types, .T_i_c
         self.cfg = cfg
@@ -94,6 +134,7 @@ class SfmPipeline:
         self.corners: dict = {}
         self.matches: dict = {}
         self.tracks: dict = {}
+        self.outlier_tracks: dict = {}
         self.cameras: dict = {}       # {fcid: (7,) pose}
         self.landmarks: dict = {}     # {track id: Landmark}
         # per-stage wall seconds
@@ -102,6 +143,7 @@ class SfmPipeline:
         self.counters: dict = {}
 
         self._stacked = None  # device-side stacked features
+        self.bow_voc = None   # a features.bow.BowVocabulary, for match_bow
 
     @classmethod
     def from_map(cls, map_dict: dict, corners: dict, calib,
@@ -250,12 +292,155 @@ class SfmPipeline:
         return [(i, j) for i in range(len(keys)) for j in range(i)
                 if keys[i][0] != keys[j][0]]
 
+    def match_all(self):
+        """Matching and relative-pose RANSAC of all non-stereo pairs
+        (sfm.cpp:1275-1351)."""
+        t0 = time.time()
+        self.clear_tracks()
+        ids = self._pair_worklist()
+        self.log(f"Brute-force matching {len(ids)} image pairs...")
+        self._run_pair_matching(ids)
+        self.timings["match_all"] = time.time() - t0
+        self._report_pair_matching(ids)
+
+    def _ransac_chunks(self, counts: np.ndarray, MM: int, itemsize: int):
+        """The RANSAC chunks of a worklist with match ``counts``: a list of
+        (positions in the worklist, columns).  The pairs go in order of
+        their counts, largest first; a chunk is cut to the columns its
+        largest count needs (a multiple of 32, at most MM) and holds as
+        many pairs as the prescreen of ``RANSAC_MEMORY_SHARE`` of the
+        card's memory (``RANSAC_CPU_BYTES`` on the CPU) allows, at 10
+        candidates x hypotheses x columns of ``itemsize`` bytes a pair."""
+        if self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            budget = int(total * RANSAC_MEMORY_SHARE)
+        else:
+            budget = RANSAC_CPU_BYTES
+        order = np.argsort(-counts, kind="stable")
+        out, s = [], 0
+        while s < len(order):
+            Mc = min(MM, max(32, -(-int(counts[order[s]]) // 32) * 32))
+            C = max(1, budget // (10 * self.cfg.ransac_hypotheses * Mc
+                                  * itemsize))
+            out.append((order[s:s + C], Mc))
+            s += C
+        return out
+
+    def _run_pair_matching(self, ids):
+        """Match the worklist ``ids`` [(i, j)] of image indices and verify
+        each pair; fills ``matches`` with the JAX package's layout, in
+        worklist order.
+
+        The pairs go to RANSAC in order of their match counts, largest
+        first, in chunks cut to the columns their largest count needs (a
+        multiple of 32; the rest are padding), each as large as the memory
+        budget allows at that width: the work follows the matches, not
+        the budget of ``max_matches_per_pair``."""
+        cfg = self.cfg
+        _, valid, desc, bear = self._stack_features()
+        if not ids:
+            return
+        ids_np = np.asarray(ids, np.int64)
+        m12 = pair_matching.match_pairs(
+            desc, valid, ids_np[:, 0], ids_np[:, 1],
+            cfg.feature_match_max_dist, cfg.feature_match_test_next_best)
+        pairs, pvalid, count = match.matches_to_pairs(
+            m12, cfg.max_matches_per_pair)
+        del m12
+        verify = pair_matching.make_ransac_chunk(
+            bear, ransac_thresh=cfg.relative_pose_ransac_thresh,
+            ransac_min_inliers=cfg.relative_pose_ransac_min_inliers,
+            ransac_hypotheses=cfg.ransac_hypotheses)
+        i1 = torch.as_tensor(ids_np[:, 0], device=self.device)
+        i2 = torch.as_tensor(ids_np[:, 1], device=self.device)
+        fetched = []
+        for sel, Mc in self._ransac_chunks(count.cpu().numpy(), pairs.shape[1],
+                                           bear.element_size()):
+            sd = torch.as_tensor(sel, device=self.device)
+            self._count("match_chunks")
+            self._count("match_pairs", len(sel))
+            T, inl, _ = verify(i1[sd], i2[sd], pairs[sd, :Mc],
+                               pvalid[sd, :Mc], count[sd], self.generator)
+            fetched.append((sel, _fetch(pairs[sd, :Mc], count[sd], T, inl)))
+        rows = [None] * len(ids)
+        for sel, out in fetched:
+            for j, pos in enumerate(sel):
+                rows[pos] = tuple(x[j] for x in out)
+        self._consume(ids, rows)
+
+    def _consume(self, ids, rows):
+        """``matches`` entries of the pairs ``ids`` from their fetched
+        (pairs, count, T, inlier mask) ``rows``."""
+        fc = self.fcids
+        for (a, b), (p, n, T, inl) in zip(ids, rows):
+            self.matches[(fc[a], fc[b])] = {
+                "T_i_j": T, "matches": p[:n], "inliers": p[inl]}
+
+    def _report_pair_matching(self, ids):
+        num_matches = num_inliers = num_success = 0
+        for a, b in ids:
+            md = self.matches[(self.fcids[a], self.fcids[b])]
+            num_matches += len(md["matches"])
+            num_inliers += len(md["inliers"])
+            num_success += int(len(md["inliers"]) > 0)
+        self.log(
+            f"Successfully matched {num_success} out of {len(ids)} image "
+            f"pairs with a total of {num_inliers} inlier feature matches "
+            f"({num_matches} total). New total of matched image pairs is "
+            f"{len(self.matches)}."
+        )
+
+    def _bow_worklist(self):
+        """The pairs each image's bag-of-words query proposes among the
+        images inserted before it, other frames only (sfm.cpp:1355-1452)."""
+        from photometric_bundle_adjustment_tpu_torch.features import bow
+
+        db = bow.BowDatabase(self.bow_voc.num_words)
+        idx_of = {f: i for i, f in enumerate(self.fcids)}
+        ids = []
+        for fcid in self.fcids:
+            c = self.corners[fcid]
+            v = self.bow_voc.transform(c["desc"][c["valid"]])
+            for other, _score in db.query(v, self.cfg.num_bow_candidates):
+                if other[0] != fcid[0]:
+                    ids.append((idx_of[fcid], idx_of[other]))
+            db.insert(fcid, v)
+        return ids
+
+    def match_bow(self):
+        """Matching and RANSAC of the bag-of-words candidate pairs
+        (sfm.cpp:1355-1452); needs ``bow_voc``."""
+        if self.bow_voc is None:
+            self.log("Vocabulary not specified. Provide pipeline.bow_voc, "
+                     "or use match_all.")
+            return
+        t0 = time.time()
+        self.clear_tracks()
+        ids = self._bow_worklist()
+        self.log(f"Matching {len(ids)} image pairs using BoW...")
+        self._run_pair_matching(ids)
+        self.timings["match_bow"] = time.time() - t0
+        self._report_pair_matching(ids)
+
     # ------------------------------------------------------------------ clears
 
     def clear_keypoints(self):
         self.corners = {}
         self._stacked = None
+        self.clear_matches()
+
+    def clear_matches(self):
         self.matches = {}
+        self.clear_tracks()
+
+    def clear_tracks(self):
+        self.tracks = {}
+        self.outlier_tracks = {}
+        self.clear_map()
+
+    def clear_map(self):
+        self.cameras = {}
+        self.landmarks = {}
 
     # ------------------------------------------------------------------- BA
 

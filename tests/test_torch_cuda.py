@@ -10,6 +10,11 @@ arithmetic and the window read a copy: both must be bit-identical.  The grid pro
 exactly zero and its checksums agree within rtol 1e-5 (its inputs are
 small integers, so the sums are in fact exact), two calls bit-equal.
 
+RANSAC (no kernel of its own) runs on the card against the CPU on the
+same injected samples, in f64: the inlier masks differ in at most 0.1% of
+their entries, the poses agree within 1e-6; ``match_all`` on the card
+launches the Hamming kernel once.
+
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
 
@@ -23,7 +28,8 @@ import pytest
 import torch
 
 from photometric_bundle_adjustment_tpu_torch import interop
-from photometric_bundle_adjustment_tpu_torch.features import pair_matching
+from photometric_bundle_adjustment_tpu_torch.core import se3
+from photometric_bundle_adjustment_tpu_torch.features import pair_matching, ransac
 from photometric_bundle_adjustment_tpu_torch.models import geometric_ba, synthetic
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import geo_mega, hamming, pba_mega
@@ -633,3 +639,103 @@ def test_geo_bundle_adjustment_on_card_matches_cpu(cuda, heavy):
         assert float(res.cost) < float(res.initial_cost)
         runs.append(float(res.cost))
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-3)
+
+
+def _two_view_batch(B=8, M=256, outliers=0.3, seed=0):
+    """B two-view problems of M correspondences in f64 on the CPU, a share
+    of each replaced by random directions and the last rows of some
+    invalid: (f0, f1, valid, p0), p0 the points in camera 0's frame."""
+    rng = np.random.default_rng(seed)
+    T = se3.exp(torch.as_tensor(rng.normal(0, 0.2, (B, 6))))
+    p1 = torch.as_tensor(rng.uniform(-2, 2, (B, M, 3)) + np.array([0, 0, 6.0]))
+    p0 = se3.act(T[:, None], p1)
+    f0 = p0 / torch.linalg.norm(p0, dim=-1, keepdim=True)
+    f1 = p1 / torch.linalg.norm(p1, dim=-1, keepdim=True)
+    n_out = int(M * outliers)
+    bad = torch.as_tensor(rng.normal(size=(B, n_out, 3)))
+    bad[..., 2] = bad[..., 2].abs() + 1
+    f1[:, :n_out] = bad / torch.linalg.norm(bad, dim=-1, keepdim=True)
+    valid = torch.ones(B, M, dtype=torch.bool)
+    valid[::3, -20:] = False
+    return f0, f1, valid, p0
+
+
+@pytest.mark.parametrize("solver", ["nister", "eight_point"])
+def test_relative_pose_on_card_matches_cpu(cuda, solver):
+    f0, f1, valid, _ = _two_view_batch()
+    idx = ransac._sample_indices(torch.Generator().manual_seed(0), 64,
+                                 5 if solver == "nister" else 8, valid)
+    runs = [[x.cpu() for x in ransac.ransac_relative_pose(
+        f0.to(dev), f1.to(dev), valid.to(dev), num_hypotheses=64,
+        solver=solver, idx=idx.to(dev))] for dev in (cuda, "cpu")]
+    (Tg, inl_g, n_g), (Tc, inl_c, n_c) = runs
+    assert float((inl_g != inl_c).double().mean()) <= 1e-3
+    cos = torch.sum(se3.translation(Tg) * se3.translation(Tc), -1)
+    assert float(torch.arccos(torch.clamp(cos, -1.0, 1.0)).max()) <= 1e-6
+    np.testing.assert_allclose(Tg.numpy(), Tc.numpy(), atol=1e-6)
+    assert (n_c > 100).all()
+
+
+@pytest.mark.parametrize("solver", ["p3p", "dlt"])
+def test_pnp_on_card_matches_cpu(cuda, solver):
+    # camera 1 localised against the points in camera 0's frame
+    _, f1, valid, p0 = _two_view_batch(seed=1)
+    idx = ransac._sample_indices(torch.Generator().manual_seed(1), 128,
+                                 3 if solver == "p3p" else 6, valid)
+    runs = [[x.cpu() for x in ransac.ransac_pnp(
+        f1.to(dev), p0.to(dev), valid.to(dev), num_hypotheses=128,
+        solver=solver, idx=idx.to(dev))] for dev in (cuda, "cpu")]
+    (Tg, inl_g), (Tc, inl_c) = runs
+    assert float((inl_g != inl_c).double().mean()) <= 1e-3
+    np.testing.assert_allclose(Tg.numpy(), Tc.numpy(), atol=1e-6)
+
+
+def test_ransac_draws_on_the_card(cuda):
+    """Samples drawn by a generator on the card give the same outcome as
+    on the CPU: every problem's inliers found, and at most one of its 76
+    random outliers kept (a random bearing lands on the epipolar geometry
+    within the threshold about once in 600)."""
+    f0, f1, valid, _ = _two_view_batch(seed=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, inl, n = ransac.ransac_relative_pose(
+        f0.to(cuda), f1.to(cuda), valid.to(cuda), gen, threshold=1e-7)
+    inl = inl.cpu()
+    assert int(inl[:, :76].sum(-1).max()) <= 1
+    assert bool((n.cpu() >= valid[:, 76:].sum(-1)).all())
+
+
+def test_match_all_on_card(cuda):
+    """``match_all`` on the card: one Hamming launch for the whole
+    worklist, the worklist and (where the descriptors agree bit for bit)
+    every match list equal to the CPU's, and relative rotations near the
+    ground truth."""
+    seq = synthetic.synth_stereo_sequence(n_frames=4, H=240, W=376,
+                                          device="cpu")
+    pipes = {}
+    for dev in (cuda, "cpu"):
+        p = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
+                        device=dev)
+        p.detect_keypoints()
+        p.match_stereo()
+        before = hamming.KERNEL_LAUNCHES
+        p.match_all()
+        pipes[torch.device(dev).type] = (p, hamming.KERNEL_LAUNCHES - before)
+    (g, launches), (c, _) = pipes["cuda"], pipes["cpu"]
+    assert launches == 1
+    assert g._pair_worklist() == c._pair_worklist()
+    assert sorted(g.matches) == sorted(c.matches)
+    same = all(np.array_equal(g.corners[k]["desc"], c.corners[k]["desc"])
+               for k in c.fcids)
+    errs = []
+    for (a, b), md in g.matches.items():
+        if same:
+            np.testing.assert_array_equal(md["matches"],
+                                          c.matches[(a, b)]["matches"])
+        if a[0] == b[0] or not len(md["inliers"]):
+            continue
+        T_gt = se3.compose(se3.inverse(torch.as_tensor(seq.poses_gt[a])),
+                           torch.as_tensor(seq.poses_gt[b]))
+        T = torch.as_tensor(md["T_i_j"])
+        errs.append(float(torch.linalg.norm(se3.so3_log(se3.quat_mul(
+            se3.quat_conj(se3.rotation(T)), se3.rotation(T_gt))))))
+    assert len(errs) >= 20 and max(errs) <= 6e-2 and np.median(errs) <= 2e-2

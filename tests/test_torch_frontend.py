@@ -140,7 +140,8 @@ def test_match_pairs_over_worklist_matches_jax():
 
 def test_profile_frontend_on_plain_path():
     """The front end's profiling entry point runs on the CPU plain path and
-    reports every stage; the device fields stay empty off the card."""
+    reports every stage, ``match_all``'s RANSAC stages included; the
+    device fields stay empty off the card."""
     from photometric_bundle_adjustment_tpu_torch import profile_frontend
 
     res = profile_frontend.main(["--device", "cpu", "--frames", "3", "--H",
@@ -149,7 +150,11 @@ def test_profile_frontend_on_plain_path():
     for k in ("detect_ms", "match_stereo_ms", "match_pairs_ms", "batch_ms",
               "shi_tomasi_ms", "compute_descriptors_ms"):
         assert np.isfinite(res[k]) and res[k] > 0, k
+    for k in ("sample_ms", "five_point_ms", "prescreen_ms", "score_ms",
+              "refine_ms", "inliers_ms", "consume_ms"):
+        assert np.isfinite(res["ransac_chunk_ms"][k]), k
+    assert res["match_all_ms"] > 0 and res["ransac_chunks"] == 1
     for p in (res["detect_profile"], res["match_stereo_profile"],
-              res["match_pairs_profile"]):
+              res["match_pairs_profile"], res["match_all_profile"]):
         assert p["top_self_ms"] and p["device_busy_ms"] is None
     assert res["peak_device_mib"] is None
