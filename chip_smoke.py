@@ -111,7 +111,21 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      up to 512 detected corners each, every corner's world point where
      its ray meets the room, 30% of the bearings replaced by outliers
      from a seeded generator (median pose error at most
-     ``PNP_POSE_MEDIAN``).
+     ``PNP_POSE_MEDIAN``);
+  9. the SfM run, no kernel of its own (the JAX package computes the map
+     stages' geometry in XLA): ``SfmPipeline.run`` from images to
+     ``Stage.DONE`` on 82 stereo frames (164 images of 480x752) of the
+     indoor room (``synth_stereo_sequence(room_radius=INDOOR_ROOM_RADIUS)``,
+     seed 0), default ``SfmConfig``, f64: the wall and device-block seconds
+     of each stage, the counters, BA solves, localisation waves, the map's
+     size, peak memory and ``sfm_keyframes_per_s`` (82 frames over the
+     run's wall, the map stages' share beside it); at least
+     ``SFM_REGISTERED`` of the images registered, the cam-0 ATE against
+     the rendered poses after an SE3 alignment at most ``SFM_ATE_M``, the
+     reprojection RMS at most ``SFM_RMS_PX``, the Hamming kernel launched
+     exactly twice (``match_stereo``, ``match_all``) and no other kernel;
+     then one BA solve of the map (inverse depths perturbed) under
+     ``torch.profiler``: device kernels, busy share.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
@@ -207,6 +221,19 @@ GT_PX, GT_SHARE = 2.0, 0.8
 RANSAC_ROT_MEDIAN, RANSAC_PAIRS = 1e-2, 64
 RANSAC_MASK_SHARE, RANSAC_DIR_RAD = 1e-3, 1e-6
 PNP_CORNERS, PNP_OUTLIERS, PNP_POSE_MEDIAN = 512, 0.3, 1e-3
+# phase 9: the SfM run from images to a finished map, on the indoor
+# room.  At least SFM_REGISTERED of the images registered; the cam-0
+# trajectory's ATE against the rendered poses after an SE3 alignment (the
+# stereo baseline fixes the scale) at most SFM_ATE_M; the final map's
+# reprojection RMS at most SFM_RMS_PX.  SFM_ATE_CPU_M is the ATE of the
+# JAX package's run of the same scene on the CPU in f64
+# (``python scripts/sfm_run_jax.py``: 164 cameras, 693 landmarks, RMS
+# 0.7249 px); the bound is twice it, as the card draws other RANSAC
+# samples.  SFM_PROFILE_NOISE perturbs the inverse depths of the map that
+# one BA solve is profiled on.
+SFM_REGISTERED, SFM_RMS_PX, SFM_PROFILE_NOISE = 0.95, 1.0, 0.01
+SFM_ATE_CPU_M = 5.71063769969957e-3
+SFM_ATE_M = 2 * SFM_ATE_CPU_M
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -1913,6 +1940,105 @@ def geo_phase(device, card: str, se3) -> float:
 
 
 
+def sfm_phase(device, card: str) -> int:
+    """Phase 9: ``SfmPipeline.run`` from images to ``Stage.DONE`` on the
+    indoor room, 82 stereo frames, default ``SfmConfig``.  Returns the
+    Hamming launches of the run."""
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import hamming
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        SfmPipeline,
+        Stage,
+    )
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+        SEED,
+        profile_run,
+    )
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    t0 = time.perf_counter()
+    seq = synthetic.synth_stereo_sequence(
+        n_frames=FRONT_FRAMES, H=FRONT_H, W=FRONT_W, seed=SEED,
+        room_radius=synthetic.INDOOR_ROOM_RADIUS, device=device)
+    n_img = len(seq.images)
+    print(f"phase 9: SfmPipeline.run, {n_img} images of {FRONT_H}x{FRONT_W} "
+          f"in the indoor room (radius {synthetic.INDOOR_ROOM_RADIUS} m; "
+          f"rendered in {time.perf_counter() - t0:.1f} s), default SfmConfig")
+    logs = []
+    pipe = SfmPipeline(seq.images, seq.calib, log=logs.append, device=device)
+    # the main path, counts from 0
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    check(pipe.stage == Stage.DONE, f"the run stopped at {pipe.stage}")
+
+    front = ("detect", "match_stereo", "match_all")
+    t, td = pipe.timings, pipe.timings_dev
+    map_s = wall - sum(t.get(k, 0.0) for k in front)
+    print(f"  wall {wall:.3f} s; sfm_keyframes_per_s "
+          f"{FRONT_FRAMES / wall:.3f} (the map stages {map_s:.3f} s, "
+          f"{map_s / wall:.1%} of the wall); device blocks "
+          f"{pipe.device_seconds:.3f} s, host {wall - pipe.device_seconds:.3f}"
+          f" s; peak {peak:.1f} MiB")
+    print("  stages (wall s / device-block s / host s): " + ", ".join(
+        f"{k} {t[k]:.3f}/{td.get(k, 0.0):.3f}/{t[k] - td.get(k, 0.0):.3f}"
+        for k in t if k != "ba_iters") + f"; ba_iters {t.get('ba_iters', 0)}")
+    print("  counters: " + " ".join(
+        f"{k}={v}" for k, v in sorted(pipe.counters.items())))
+    rounds = sum(s.startswith("Selected ") for s in logs)
+    n_obs = sum(len(lm.obs) for lm in pipe.landmarks.values())
+    print(f"  BA solves {pipe.counters.get('ba_solves', 0)}, localisation "
+          f"waves {pipe.counters.get('localize_waves', 0)} in {rounds} "
+          f"candidate rounds, cameras {len(pipe.cameras)} of {n_img}, "
+          f"landmarks {len(pipe.landmarks)}, observations {n_obs}, outlier "
+          f"tracks {len(pipe.outlier_tracks)}")
+    print(f"  {pipe.summary()}")
+    for line in logs[-4:-2]:
+        print(f"  log: {line}")
+
+    check(len(pipe.cameras) >= SFM_REGISTERED * n_img,
+          f"only {len(pipe.cameras)} of {n_img} images registered")
+    m = sfm_run.measure(pipe, seq)
+    ate, rms = m["ate_m"], m["rms_px"]
+    print(f"  cam-0 ATE (SE3 alignment, {m['cam0_frames']} frames) "
+          f"{ate:.6e} m (bound {SFM_ATE_M} m); reprojection RMS {rms:.4f} "
+          f"px over {m['observations']} observations (bound {SFM_RMS_PX} "
+          f"px)")
+    check(ate <= SFM_ATE_M, f"ATE {ate:.3e} m over {SFM_ATE_M} m")
+    check(rms <= SFM_RMS_PX, f"reprojection RMS {rms:.3f} px")
+    check(counts["hamming"] == 2 and hamming.KERNEL_LAUNCHES == 2,
+          f"the run launched the Hamming kernel {counts['hamming']} times, "
+          f"not twice (match_stereo, match_all)")
+    others = {k: v for k, v in counts.items() if k != "hamming" and v}
+    check(not others, f"the run launched other kernels: {others}")
+    print(f"  kernel launches in phase 9: {counts}")
+
+    # one more BA solve under the profiler, of the finished map with its
+    # inverse depths perturbed by SFM_PROFILE_NOISE (seeded), so that the
+    # solve iterates as the run's solves do
+    rng = np.random.default_rng(SEED)
+    for lm in pipe.landmarks.values():
+        lm.inv_depth *= 1.0 + SFM_PROFILE_NOISE * rng.normal()
+    n_logs = len(logs)
+    prof = profile_run(pipe.optimize, 1, device)
+    (ba_line,) = [s for s in logs[n_logs:] if s.startswith("BA: ")]
+    iters = int(ba_line.split(" in ")[1].split()[0])
+    print(f"  one BA solve under the profiler (inverse depths perturbed by "
+          f"{SFM_PROFILE_NOISE:.0%}): wall {prof['wall_ms']:.1f} ms, "
+          f"{prof['device_kernels_per_run']:.0f} device kernels "
+          f"({prof['device_kernels_per_run'] / max(iters, 1):.0f} an "
+          f"iteration), device busy {prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['device_busy_share']:.1f}%); {ba_line}")
+    print(card)
+    return counts["hamming"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1957,6 +2083,7 @@ def main() -> int:
     grid, window = probe_phase(device)
     geo_phase(device, card, se3)
     front["launches"] += ransac_phase(seq_pipe, seq, device, se3)
+    front["launches"] += sfm_phase(device, card)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",

@@ -4,7 +4,10 @@ numpy.
 The two packages never import each other.  A caller that holds both (the
 parity tests) turns the JAX arrays into numpy with ``np.asarray`` and
 hands them here, so both packages compute on identical state.  The
-functions read the problem by field name only.
+functions read the problem by field name only, and a running SfM
+pipeline's map state attribute by attribute (``map_state_to_numpy``,
+``set_map_state``): a test can copy the JAX pipeline's state into the
+port at any stage boundary.
 
 Descriptor stacks: the JAX package holds 256-bit descriptors as (…, 8)
 uint32 words.  torch's uint32 supports few operations, so the port holds
@@ -108,3 +111,60 @@ def matches_to_numpy(matches: dict) -> dict:
     "matches", "inliers"}}, either package's) with numpy values."""
     return {k: {name: np.asarray(v) for name, v in md.items()}
             for k, md in matches.items()}
+
+
+def map_state_to_numpy(pipe) -> dict:
+    """The map state of a running SfM pipeline (either package's), read
+    attribute by attribute into plain dicts, lists and numpy arrays: the
+    map pickle's ``cameras``, ``landmarks`` (``inv_depth``, ``obs``,
+    ``outlier_obs``), ``tracks`` and ``outlier_tracks``, plus
+    ``candidates`` (dicts of the Candidate fields), ``stage`` (the Stage's
+    name), ``min_localization_inliers`` and ``max_cameras_to_add``.  Every
+    dict keeps its insertion order."""
+    return {
+        "cameras": {f: np.array(T, np.float64)
+                    for f, T in pipe.cameras.items()},
+        "landmarks": {
+            int(t): {"inv_depth": float(lm.inv_depth), "obs": dict(lm.obs),
+                     "outlier_obs": dict(lm.outlier_obs)}
+            for t, lm in pipe.landmarks.items()},
+        "tracks": {int(t): dict(tr) for t, tr in pipe.tracks.items()},
+        "outlier_tracks": {int(t): dict(tr)
+                           for t, tr in pipe.outlier_tracks.items()},
+        "candidates": [
+            {"fcid": c.fcid, "shared_tracks": [int(t) for t in
+                                               c.shared_tracks],
+             "tried": bool(c.tried), "camera_added": bool(c.camera_added),
+             "landmarks_added": bool(c.landmarks_added)}
+            for c in pipe.candidates],
+        "stage": pipe.stage.name,
+        "min_localization_inliers": int(pipe.min_localization_inliers),
+        "max_cameras_to_add": int(pipe.max_cameras_to_add),
+    }
+
+
+def set_map_state(pipe, state: dict) -> None:
+    """Set the map state of the port's SfM pipeline ``pipe`` from
+    ``state`` (``map_state_to_numpy``'s form), copying every container;
+    the localisation cache starts empty."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline import (
+        sfm_pipeline as sfm,
+    )
+
+    pipe.cameras = {f: np.array(T, np.float64)
+                    for f, T in state["cameras"].items()}
+    pipe.landmarks = {
+        t: sfm.Landmark(float(d["inv_depth"]), dict(d["obs"]),
+                        dict(d["outlier_obs"]))
+        for t, d in state["landmarks"].items()}
+    pipe.tracks = {t: dict(tr) for t, tr in state["tracks"].items()}
+    pipe.outlier_tracks = {t: dict(tr)
+                           for t, tr in state["outlier_tracks"].items()}
+    pipe.candidates = [
+        sfm.Candidate(c["fcid"], list(c["shared_tracks"]), c["tried"],
+                      c["camera_added"], c["landmarks_added"])
+        for c in state["candidates"]]
+    pipe.stage = sfm.Stage[state["stage"]]
+    pipe.min_localization_inliers = state["min_localization_inliers"]
+    pipe.max_cameras_to_add = state["max_cameras_to_add"]
+    pipe._loc_cache = {}

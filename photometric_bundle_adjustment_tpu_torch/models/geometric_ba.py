@@ -195,7 +195,17 @@ def bundle_adjustment(problem: ba.BAProblem, model: str,
     ``_accel_plan``'s layout; the returned problem then holds the
     observations in that layout's order, and its camera states and
     inverse depths index as the input's do.  ``use_fused=False`` runs the
-    scatter-add reference ``make_solver``."""
+    scatter-add reference ``make_solver``.
+
+    A problem without landmarks or without valid observations has nothing
+    to solve: it comes back unchanged, at cost 0 and no iteration (the
+    JAX package's plan builders raise there)."""
+    o = problem.obs
+    if problem.inv_depth.shape[0] == 0 or not bool((o.valid != 0).any()):
+        zero = torch.zeros((), dtype=problem.inv_depth.dtype,
+                           device=problem.inv_depth.device)
+        return problem, ba.BAResult(cost=zero, initial_cost=zero,
+                                    iterations=0, lam=cfg.init_lambda)
     if use_fused is None or use_fused:
         problem, plan = _accel_plan(problem)
         return make_fused_solver(model)(problem, plan, cfg)

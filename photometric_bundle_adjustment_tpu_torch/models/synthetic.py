@@ -327,6 +327,10 @@ _DS_752 = (
 )
 _BASELINE = 0.11                # EuRoC stereo baseline (m)
 _ROOM_RADIUS = 10.0
+# an indoor room for the map stages: at 10 m the 0.11 m baseline gives
+# stereo rays about 0.6 degrees apart, under SfmConfig's 1 degree
+# triangulation gate; at 3 m most corners of the trajectory clear it
+INDOOR_ROOM_RADIUS = 3.0
 
 
 @dataclass
@@ -367,12 +371,13 @@ def _texture(p: torch.Tensor, scale: float) -> torch.Tensor:
             + 20.0 * torch.sin(6.1 * x - 4.3 * y + 3.3 * z))
 
 
-def _room_depth(o: torch.Tensor, dw: torch.Tensor, center: torch.Tensor):
+def _room_depth(o: torch.Tensor, dw: torch.Tensor, center: torch.Tensor,
+                radius: float = _ROOM_RADIUS):
     """Distance along unit rays ``dw`` (N, 3) from ``o`` (inside the room
-    sphere) to the sphere."""
+    sphere of ``radius``) to the sphere."""
     oc = o - center
     b = dw @ oc
-    c = oc @ oc - _ROOM_RADIUS**2
+    c = oc @ oc - radius**2
     return -b + torch.sqrt(b * b - c)
 
 
@@ -517,6 +522,7 @@ class SynthSequence:
     calib: SynthCalib
     poses_gt: dict              # {(frame, cam): pose7 T_w_c}
     center: np.ndarray          # (3,) room centre
+    radius: float = _ROOM_RADIUS
 
     def correspondence(self, src, dst, uv: np.ndarray):
         """Pixels (N, 2) of image ``src`` mapped to image ``dst`` through
@@ -547,7 +553,7 @@ class SynthSequence:
         dw = se3.quat_rotate(se3.rotation(T_s), d)
         oc = o - torch.as_tensor(self.center, device=dev)
         b = torch.sum(dw * oc, -1)
-        c = torch.sum(oc * oc, -1) - _ROOM_RADIUS**2
+        c = torch.sum(oc * oc, -1) - self.radius**2
         return o + (-b + torch.sqrt(b * b - c))[:, None] * dw
 
     def correspondences(self, src, dst, uv):
@@ -584,19 +590,26 @@ def _block_texture(p: torch.Tensor, cell: float, table: torch.Tensor,
 
 def synth_stereo_sequence(n_frames: int = 82, H: int = 480, W: int = 752,
                           seed: int = 0, cell: float | None = None, *,
+                          room_radius: float = _ROOM_RADIUS,
                           device="cuda") -> SynthSequence:
     """``n_frames`` stereo frames (2 n_frames images of H x W) of the
     ``synth_pba_pipe`` room, trajectory and EuRoC double-sphere rig,
     rendered with grey blocks of ``cell`` metres (by default 0.95 m at
-    752 px width, scaled so that blocks span the same pixels at any
-    width), anti-aliased over _SUPERSAMPLE^2 rays per pixel.  The block
-    greys come from ``seed``.  Rendering runs in float64 on ``device``."""
+    752 px width in the 10 m room, scaled so that blocks span the same
+    pixels at any width and in a room of any ``room_radius``),
+    anti-aliased over _SUPERSAMPLE^2 rays per pixel.  The block greys come
+    from ``seed``.  Rendering runs in float64 on ``device``.
+
+    ``room_radius=INDOOR_ROOM_RADIUS`` renders the indoor room the map
+    stages need: the stereo parallax of the default 10 m room falls under
+    the triangulation gate (``SfmConfig.min_triangulation_angle_deg``)."""
     device = devices.resolve(device)
     f64 = torch.float64
     model = "ds"
     intr, poses, T_i_c, center = _stereo_rig(n_frames, W, model)
     s = W / 752.0
-    cell = 0.95 / s if cell is None else cell
+    if cell is None:
+        cell = 0.95 / s * room_radius / _ROOM_RADIUS
     rng = np.random.default_rng(seed)
     table = torch.as_tensor(rng.uniform(25.0, 230.0, 4099), dtype=f64,
                             device=device)
@@ -618,7 +631,7 @@ def synth_stereo_sequence(n_frames: int = 82, H: int = 480, W: int = 752,
     for i, key in enumerate(keys):
         o = se3.translation(poses_d[i])
         dw = se3.quat_rotate(se3.rotation(poses_d[i]), rays[key[1]])
-        p_w = o + _room_depth(o, dw, center_d)[:, None] * dw
+        p_w = o + _room_depth(o, dw, center_d, room_radius)[:, None] * dw
         img = _block_texture(p_w, cell, table, s).reshape(H, W, n * n)
         img = torch.clamp(torch.round(img.mean(-1)), 0, 255)
         images[key] = img.to(torch.uint8).cpu().numpy()
@@ -629,4 +642,5 @@ def synth_stereo_sequence(n_frames: int = 82, H: int = 480, W: int = 752,
                          T_i_c=T_i_c),
         poses_gt={key: gt[i] for i, key in enumerate(keys)},
         center=center.numpy(),
+        radius=room_radius,
     )

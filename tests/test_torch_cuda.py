@@ -13,7 +13,10 @@ small integers, so the sums are in fact exact), two calls bit-equal.
 RANSAC (no kernel of its own) runs on the card against the CPU on the
 same injected samples, in f64: the inlier masks differ in at most 0.1% of
 their entries, the poses agree within 1e-6; ``match_all`` on the card
-launches the Hamming kernel once.
+launches the Hamming kernel once.  The SfM map stages' batched geometry
+(no kernel of its own either) on the card against the CPU in f64: within
+1e-9, a localisation wave within 1e-6; ``SfmPipeline.run`` on the card
+from images to a finished map, held to the rendered truth.
 
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
@@ -739,3 +742,117 @@ def test_match_all_on_card(cuda):
         errs.append(float(torch.linalg.norm(se3.so3_log(se3.quat_mul(
             se3.quat_conj(se3.rotation(T)), se3.rotation(T_gt))))))
     assert len(errs) >= 20 and max(errs) <= 6e-2 and np.median(errs) <= 2e-2
+
+
+def _map_rows(seed=0, n=300):
+    """Rows of the map stages' geometry on the indoor room: pixels of
+    image (0, 0), their room points, and where the stereo partner (0, 1)
+    sees them."""
+    seq = synthetic.synth_stereo_sequence(
+        n_frames=2, H=120, W=188, room_radius=synthetic.INDOOR_ROOM_RADIUS,
+        device="cpu")
+    rng = np.random.default_rng(seed)
+    uv0 = rng.uniform([10, 10], [178, 110], (n, 2))
+    keys = sorted(seq.poses_gt)
+    src = np.zeros(n, np.int64)
+    p_w = seq.world_points(src, uv0)
+    uv1, _ = seq.correspondences(src, np.full(n, keys.index((0, 1))), uv0)
+    intr = np.asarray(seq.calib.intrinsics)
+    T0 = np.tile(seq.poses_gt[(0, 0)], (n, 1))
+    T1 = np.tile(seq.poses_gt[(0, 1)], (n, 1))
+    rho = 1.0 / np.linalg.norm(p_w.numpy() - T0[:, :3], axis=1)
+    return seq, uv0, uv1, intr[[0] * n], intr[[1] * n], T0, T1, rho
+
+
+def test_map_geometry_on_card_matches_cpu(cuda):
+    """The map stages' batched helpers (``lm_positions``, ``project_obs``,
+    ``triangulate_rows``) on the card against the CPU, f64: within 1e-9,
+    the parallax gate's decisions equal."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline import (
+        sfm_pipeline as sfm,
+    )
+
+    seq, uv0, uv1, intr, intr1, T0, T1, rho = _map_rows()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+        p_w = sfm.lm_positions("ds", t(uv0), t(intr), t(T0), t(rho))
+        proj = sfm.project_obs("ds", t(uv0), t(intr), t(T0), t(rho), t(uv1),
+                               t(intr1), t(T1))
+        inv, ok = sfm.triangulate_rows("ds", t(uv0), t(uv1), t(intr),
+                                       t(intr1), t(T0), t(T1),
+                                       float(np.cos(np.deg2rad(1.0))))
+        out.append([x.cpu() for x in (p_w, proj, inv, ok)])
+    (pg, jg, ig, og), (pc, jc, ic, oc) = out
+    np.testing.assert_allclose(pg.numpy(), pc.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(jg.numpy(), jc.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(ig.numpy(), ic.numpy(), rtol=1e-9)
+    assert torch.equal(og, oc) and bool(oc.any())
+    # the room points are the truth: projection errors near zero
+    assert float(jc[:, 2].max()) < 1e-3
+
+
+def test_localize_batch_on_card_matches_cpu(cuda):
+    """A wave of 3 cameras on the same injected samples: poses within
+    1e-6 and inlier masks differing in at most 0.1% of their entries."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline import (
+        sfm_pipeline as sfm,
+    )
+
+    seq, uv0, uv1, intr, intr1, T0, T1, rho = _map_rows(seed=1)
+    n = len(uv0)
+    B, M = 3, n
+    # every wave member localises camera (0, 1) against the anchors in
+    # (0, 0); member b sees the first n - 40 b rows, the rest padding
+    valid = np.zeros((B, M), bool)
+    for b in range(B):
+        valid[b, :n - 40 * b] = True
+    idx = ransac._sample_indices(torch.Generator().manual_seed(0), 128, 3,
+                                 torch.as_tensor(valid))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        def t(x):
+            return torch.as_tensor(np.ascontiguousarray(x),
+                                   dtype=torch.float64, device=dev)
+
+        T, inl = sfm.localize_batch(
+            "ds", t(np.broadcast_to(uv1, (B, M, 2))), t(intr1[:B]),
+            t(np.broadcast_to(uv0, (B, M, 2))),
+            t(np.broadcast_to(intr, (B, M, 8))),
+            t(np.broadcast_to(T0, (B, M, 7))), t(np.broadcast_to(rho, (B, M))),
+            torch.as_tensor(valid, device=dev), None, 3.0, 128,
+            idx=idx.to(dev))
+        out.append((T.cpu(), inl.cpu()))
+    (Tg, ig), (Tc, ic) = out
+    assert float((ig != ic).double().mean()) <= 1e-3
+    np.testing.assert_allclose(Tg.numpy(), Tc.numpy(), rtol=0, atol=1e-6)
+    for b in range(B):
+        np.testing.assert_allclose(Tc[b].numpy(), seq.poses_gt[(0, 1)],
+                                   atol=1e-3)
+
+
+def test_sfm_run_on_card(cuda):
+    """``SfmPipeline.run`` on the card from images to DONE (4 frames of
+    the indoor room at 480x752): every image registered, the Hamming
+    kernel launched twice (match_stereo, match_all), the map within 5 mm
+    of the rendered trajectory, as on the CPU (other RANSAC samples, so
+    the two maps are held to the truth, not to each other)."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        Stage,
+    )
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    seq = synthetic.synth_stereo_sequence(
+        n_frames=4, room_radius=synthetic.INDOOR_ROOM_RADIUS, device="cpu")
+    for dev in (cuda, "cpu"):
+        p = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
+                        device=dev)
+        before = hamming.KERNEL_LAUNCHES
+        p.run()
+        assert p.stage == Stage.DONE
+        m = sfm_run.measure(p, seq)
+        assert m["cameras"] == 8 and m["ate_m"] < 5e-3 and m["rms_px"] < 1.0
+        if dev == cuda:
+            assert hamming.KERNEL_LAUNCHES - before == 2

@@ -207,6 +207,7 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.scripts import (
         exp_roll,
         grid_overhead,
+        sfm_run,
     )
 
     prob_d, plan_d = fused.densify_problem(problem)
@@ -260,6 +261,7 @@ def _entry_point_calls():
         "photometric_make_solver": lambda: pba.make_solver(
             "ds", images_flat, H, W),
         "entry": lambda: entry.entry(),
+        "sfm_run": lambda: sfm_run.main(["--frames", "1", "--quiet"]),
         "from_map": lambda: SfmPipeline.from_map(
             map_dict, {(0, 0): {"uv": np.zeros((1, 2))}},
             calib_io.Calibration(np.zeros((2, 7)), np.zeros((2, 8)), ["ds"])),
@@ -274,7 +276,8 @@ def _entry_point_calls():
     "SfmPipeline",
     "descriptors_from_numpy", "synth_ba_problem", "geometric_build_problem",
     "geometric_problem_from_numpy", "make_geo_solver",
-    "make_geo_solver_dense", "photometric_make_solver", "entry", "from_map"])
+    "make_geo_solver_dense", "photometric_make_solver", "entry", "from_map",
+    "sfm_run"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
