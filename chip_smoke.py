@@ -125,11 +125,38 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      reprojection RMS at most ``SFM_RMS_PX``, the Hamming kernel launched
      exactly twice (``match_stereo``, ``match_all``) and no other kernel;
      then one BA solve of the map (inverse depths perturbed) under
-     ``torch.profiler``: device kernels, busy share.
+     ``torch.profiler``: device kernels, busy share; the map is then set
+     back to the state the run left it in;
+ 10. the megakernel against its plain version on the level-0 problem of
+     phase 9's finished map (compared, timed and bounded as in phase 1),
+     then ``apps/pba.refine_map`` on that map with the app's
+     defaults (3 levels, 20 iterations, Huber 9, f32): cameras, landmarks
+     and patch observations, each level's set-up and solve seconds, LM
+     it/s, tries and costs, peak memory, the cam-0 ATE and reprojection RMS
+     before and after; the cost falls at every level, the ATE after is at
+     most ``PBA_ATE_M``, the megakernel (#1) launches and no other kernel;
+ 11. ``apps/sfm --global-init`` (``run_global_init``) on phase 9's images,
+     detected and matched again: the rotation and translation averaging's
+     costs, iterations and seconds, the component, the triangulation
+     loop's seconds, batches and landmarks, the rest of ``run``; at least
+     ``SFM_REGISTERED`` of the images registered, RMS at most
+     ``SFM_RMS_PX``, the cam-0 ATE at most ``GLOBAL_ATE_M``, the Hamming
+     kernel launched twice and no other kernel;
+ 12. calibration at euroc_calib's size (``synthetic.synth_aprilgrid``: 52
+     stereo frames, 0.1 px noise) of the ds rig of
+     ``refbaseline/artifacts/ref_opt_calib.json`` and the kb4 rig of
+     tests/data/opt_calib_kb4.json, from perturbed intrinsics through
+     ``cameras.initialize``, in f64 on the card and on the CPU: iterations
+     and seconds of each; the RMSE within 10% of the noise, the
+     intrinsics within ``CALIB_INTR_PX`` of the truth, the card within
+     ``CALIB_REL`` of the CPU.  No kernel of the port runs in this phase.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
-probe and the window read), the card line again, and as the last line
+probe and the window read; the megakernel's launches are phases 2 and 10,
+its error the larger of phases 1 and 10, its times phase 1's; the Hamming
+kernel's launches are phases 3, 8, 9 and 11), the card line again, and as
+the last line
 ``{"ok": true, "device": {...}}``.  The bounds of the megakernel and the
 sampler charge their output on observation columns only.
 
@@ -169,10 +196,15 @@ ROWS_ATOL = 1e-4        # times max|ref| of each row block
 # The fused kernel computes the warp itself: its pixel coordinates differ
 # from the plain version's by a few ulps (FMA) of the projection's scale.
 # Each entry's bound adds the first-order move that WARP_ULPS ulps of
-# |u| + fx cause (``warp_bounds``), and a column with a point that close
-# to a pixel edge (the bilinear gradient jumps there) is held only to its
-# NaN pattern and the total cost.
+# |u| + fx cause (``warp_bounds``), through the samples and through the
+# Huber weight that follows the residual, and a column with a point that
+# close to a pixel edge (the bilinear gradient jumps there) is held only
+# to its NaN pattern and the total cost.  Beside that, each row block of
+# the kernel is held to the plain version evaluated in f64 on the same
+# inputs: no further from it than F64_FACTOR times the f32 plain
+# version's own distance plus ROWS_ATOL times its max |ref|.
 WARP_ULPS = 16
+F64_FACTOR = 2.0
 
 H100_BYTES_PER_S = 3.35e12
 H100_INT8_OPS_PER_S = 1.979e15
@@ -234,6 +266,33 @@ PNP_CORNERS, PNP_OUTLIERS, PNP_POSE_MEDIAN = 512, 0.3, 1e-3
 SFM_REGISTERED, SFM_RMS_PX, SFM_PROFILE_NOISE = 0.95, 1.0, 0.01
 SFM_ATE_CPU_M = 5.71063769969957e-3
 SFM_ATE_M = 2 * SFM_ATE_CPU_M
+# phase 10: apps/pba's refinement of phase 9's map (the app's defaults:
+# LEVELS levels, MAX_ITERATIONS iterations, Huber HUBER, f32).  The cam-0
+# ATE after it at most PBA_ATE_M, twice that of the JAX package's CPU
+# refinement of its own map of the same scene (``python
+# scripts/pba_global_jax.py``: ATE 5.711 -> 1.789 mm, RMS 0.8915 px).
+PBA_ATE_CPU_M = 1.788737915296198e-3
+PBA_ATE_M = 2 * PBA_ATE_CPU_M
+# phase 11: apps/sfm --global-init on the same images.  At least
+# SFM_REGISTERED of them registered, RMS at most SFM_RMS_PX, the cam-0 ATE
+# at most GLOBAL_ATE_M, twice that of the JAX package's --global-init run
+# on the CPU (the same script: 164 cameras, 674 landmarks, RMS 0.7413 px).
+GLOBAL_ATE_CPU_M = 3.603430372051806e-2
+GLOBAL_ATE_M = 2 * GLOBAL_ATE_CPU_M
+# phase 12: calibration at euroc_calib's size (CALIB_FRAMES stereo frames,
+# synth_aprilgrid with CALIB_NOISE_PX of noise, CALIB_SEED) of the rig of each
+# file, from intrinsics perturbed by CALIB_START_PX (fx, fy, cx, cy, px)
+# and 5% (ds's xi, alpha; kb4's distortion starts at 0 in
+# ``cameras.initialize``).  The RMSE within CALIB_RMSE_SHARE of the noise;
+# the intrinsics within CALIB_INTR_PX of the truth, in pixels
+# (``calibration.projection_gap``: ds trades fx against xi, so the pieces
+# alone say little); the card's f64 result within CALIB_REL of the CPU's
+# run of the same function.
+CALIB_FILES = (("ds", "refbaseline/artifacts/ref_opt_calib.json"),
+               ("kb4", "tests/data/opt_calib_kb4.json"))
+CALIB_FRAMES, CALIB_NOISE_PX, CALIB_RMSE_SHARE = 52, 0.1, 0.1
+CALIB_START_PX, CALIB_INTR_PX, CALIB_REL = (5.0, 5.0, 3.0, 3.0), 0.5, 1e-9
+CALIB_SEED = 0
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -303,11 +362,14 @@ def warp_bounds(ref, images, warp):
     ulp of u alone would be far too small).  Within a bilinear cell the value moves by |gradient| times that
     and the x-gradient by |v00 - v01 - v10 + v11| times the y move (the
     y-gradient likewise), which the Jacobian rows carry through GA and GB
-    and A0, A1 through their products.  Returns (smooth, dr, dJ, dA0,
-    dA1): the columns with no point within WARP_ULPS ulps of a pixel edge
-    (the gradient jumps there, so nothing first-order holds), and first-
-    order bounds of the residual (P, N), the 136 Jacobian rows and the 17
-    rows of A0 and A1."""
+    and A0, A1 through their products.  The Huber weight sw =
+    sqrt(HUBER / |r|) (1 where |r| <= HUBER) follows the residual: a move
+    dr changes it by at most 0.5 |dr| / max(|r|, HUBER) of itself, and
+    every row that carries sw with it.  Returns (smooth, dr, drsw, dJ,
+    dA0, dA1): the columns with no point within WARP_ULPS ulps of a pixel
+    edge (the gradient jumps there, so nothing first-order holds), and
+    first-order bounds of the residual (P, N), of r sw (P, N), the 136
+    Jacobian rows and the 17 rows of A0 and A1."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
     ux, uy, GA, GB, consts = warp
@@ -334,18 +396,23 @@ def warp_bounds(ref, images, warp):
     cross = (v00 - v01 - v10 + v11).abs()
     sw = (-ref[15]).abs()[None, :]                # Jacobian column 15 = -sw
     dr = gx.abs() * du + gy.abs() * dv            # (P, N)
+    rsw = ref[136:144].abs()
+    norm_r = rsw.norm(dim=0) / sw[0].clamp_min(1e-30)
+    dsw = 0.5 * dr.norm(dim=0) / norm_r.clamp_min(HUBER)     # relative, (N,)
     dgeo = (GA.abs().reshape(13, P, N) * (cross * dv)
             + GB.abs().reshape(13, P, N) * (cross * du)) * sw
     zero = torch.zeros_like(dgeo[:2])
-    dJ = torch.cat([dgeo[0:6], zero, dgeo[6:12], zero, dgeo[12:13]])
     J = ref[:136].reshape(P, 17, N).permute(1, 0, 2).abs()   # (17, P, N)
-    drsw = dr * sw
+    dJ = torch.cat([dgeo[0:6], zero, dgeo[6:12], zero, dgeo[12:13]]) \
+        + J * dsw
+    drsw = dr * sw + rsw * dsw
     dA0 = (dJ * J[16] + J * dJ[16]).sum(dim=1)
-    dA1 = (dJ * ref[136:144].abs() + J * drsw).sum(dim=1)
-    return smooth, dr, dJ.permute(1, 0, 2).reshape(136, N), dA0, dA1
+    dA1 = (dJ * rsw + J * drsw).sum(dim=1)
+    return smooth, dr, drsw, dJ.permute(1, 0, 2).reshape(136, N), dA0, dA1
 
 
-def compare_payloads(out, ref, images, label: str, warp) -> float:
+def compare_payloads(out, ref, images, label: str, warp,
+                     ref64=None) -> float:
     """Kernel payload against the plain version's; returns max |err| over
     the finite entries.  NaN columns (non-finite projections) must match.
     ``images`` sets the intensity scale of the cost row's FMA bound.
@@ -356,7 +423,11 @@ def compare_payloads(out, ref, images, label: str, warp) -> float:
     entry's bound also takes what a move of WARP_ULPS ulps of its
     coordinates moves (``warp_bounds``), and the columns with a point
     that close to a pixel edge are held only to their NaN pattern and the
-    total cost (their count is printed)."""
+    total cost (their count is printed).  ``ref64``, where given, is the
+    plain version evaluated in f64 on the same inputs: each row block of
+    the kernel, on the smooth columns, is held no further from it than
+    F64_FACTOR times the f32 plain version's own distance plus ROWS_ATOL
+    times its max |ref|."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 
     cost_k, cost_r = out[pba_mega.ROW_COST], ref[pba_mega.ROW_COST]
@@ -367,10 +438,14 @@ def compare_payloads(out, ref, images, label: str, warp) -> float:
     eps = torch.finfo(torch.float32).eps
     ulp_img = eps * float(images.abs().max())
     N = out.shape[1]
-    smooth, dr, dJ, dA0, dA1 = warp_bounds(ref, images, warp)
+    smooth, dr, drsw, dJ, dA0, dA1 = warp_bounds(ref, images, warp)
     smooth &= ok
-    extra = {"J": dJ, "r*sw": dr * (-ref[15]).abs()[None, :], "A0": dA0,
-             "A1": dA1, "pad": torch.zeros_like(ref[179:184])}
+    extra = {"J": dJ, "r*sw": drsw, "A0": dA0, "A1": dA1,
+             "pad": torch.zeros_like(ref[179:184])}
+    if ref64 is not None:
+        # a column whose f64 projection is not finite (at the edge of the
+        # model's domain) has no f64 value to hold; counted and printed
+        fin64 = torch.isfinite(ref64[pba_mega.ROW_COST])[smooth]
     rel = ((cost_k[ok] - cost_r[ok]).abs()
            / cost_r[ok].abs().clamp_min(1e-30)).max()
     total_rel = abs(float(cost_k[ok].double().sum() - cost_r[ok].double().sum())
@@ -389,6 +464,14 @@ def compare_payloads(out, ref, images, label: str, warp) -> float:
         max_err = max(max_err, float(err.max()))
         blocks.append(f"{name} {float(err.max()):.2e}/{scale:.2e} "
                       f"({worst:.2f} of bound)")
+        if ref64 is not None:
+            c64 = ref64[rows][:, smooth][:, fin64]
+            k64 = float((a[:, fin64].double() - c64).abs().max())
+            p64 = float((b[:, fin64].double() - c64).abs().max())
+            check(k64 <= F64_FACTOR * p64 + ROWS_ATOL * scale,
+                  f"{label}: rows {name} {k64:.4e} from the f64 plain "
+                  f"version, the f32 plain version {p64:.4e}")
+            blocks[-1] += f", f64: kernel {k64:.2e}, plain {p64:.2e}"
     # per-observation cost: rtol plus the FMA bound of the residual
     cost_err = (cost_k - cost_r).abs()
     bound = COST_RTOL * cost_r.abs() \
@@ -405,6 +488,9 @@ def compare_payloads(out, ref, images, label: str, warp) -> float:
           f"{float(rel):.3e}, total cost rel {total_rel:.3e}, cost err "
           f"{worst:.3f} of bound")
     print(f"    max|err| / max|ref| per row block: {', '.join(blocks)}")
+    if ref64 is not None:
+        print(f"    against f64: {int(fin64.sum())} of {int(smooth.sum())} "
+              f"smooth columns finite in f64")
     return max_err
 
 
@@ -471,35 +557,29 @@ def bits_equal(build, label: str):
           f"{len(neq1)} normal-equation pieces)")
 
 
-def kernel_phase(pipe, device):
-    """Phase 1: the fused kernel against its plain version at EuRoC scale,
-    timed, and on an 8448-pixel-wide image.  Returns (max_abs_err, ms,
-    plain_ms, bound_ms)."""
-    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+def mega_against_plain(model, images, cams, rho, c, label: str, device):
+    """The fused kernel against its plain version (``warp_slabs`` +
+    ``mega_rj_reference``) on these card inputs: the payloads compared
+    (``compare_payloads``, also against the plain version in f64), zero
+    columns zero, both timed on the device
+    and the kernel through its wrapper, the bound counted.  Returns
+    (max_abs_err, ms, plain_ms, bound_ms)."""
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
-    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
     from photometric_bundle_adjustment_tpu_torch.profile_solve import time_ms
 
-    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
-        pipe, device=device)
-    K = problem.cam_states.pose.shape[0]
-    model = pipe.calib.cam_types[0]
-    images = images_flat.reshape(-1, H, W).contiguous()
-    cams, rho = pushed_state(problem, device)
-    _, rows = pba_mega.build_chunk_mega_plan(problem)
-    c = pba_mega.make_mega_consts(model, problem, rows)
-    N = c.cols.shape[1]
-    n_obs = int((c.timg >= 0).sum())
-    print(f"phase 1: fused kernel vs plain at {K} images of {H}x{W}, model "
-          f"{model}, {n_obs} observations in {N} columns (one zero column)")
     ref = pba_mega.mega_fused_reference(model, images, cams, rho, c, HUBER)
     out = pba_mega.mega_fused(model, images, cams, rho, c, HUBER)
+    ref64 = pba_mega.mega_fused_reference(
+        model, images.double(), type(cams)(*(x.double() for x in cams)),
+        rho.double(), c._replace(d3=c.d3.double(), intr_t=c.intr_t.double(),
+                                 refp=c.refp.double()), HUBER)
     torch.cuda.synchronize()
     ux, uy, _, GA, GB = pba_mega.warp_slabs(model, cams, rho, c)
-    max_err = compare_payloads(out, ref, images, "EuRoC scale",
-                               (ux, uy, GA, GB, c))
-    check(bool((out[:, c.timg < 0] == 0).all()), "the zero column is not zero")
-    del out, ref
+    max_err = compare_payloads(out, ref, images, label, (ux, uy, GA, GB, c),
+                               ref64)
+    check(bool((out[:, c.timg < 0] == 0).all()),
+          f"{label}: a zero column is not zero")
+    del out, ref, ref64, ux, uy, GA, GB
 
     def kernel():
         return pba_mega.mega_fused(model, images, cams, rho, c, HUBER)
@@ -515,6 +595,31 @@ def kernel_phase(pipe, device):
     bound_ms = mega_bound_ms(model, images, cams, rho, c)
     print(f"  bound {bound_ms:.4f} ms: the kernel at "
           f"{bound_ms / ms:.1%} of it")
+    return max_err, ms, plain_ms, bound_ms
+
+
+def kernel_phase(pipe, device):
+    """Phase 1: the fused kernel against its plain version at EuRoC scale,
+    timed, and on an 8448-pixel-wide image.  Returns (max_abs_err, ms,
+    plain_ms, bound_ms)."""
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+
+    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
+        pipe, device=device)
+    K = problem.cam_states.pose.shape[0]
+    model = pipe.calib.cam_types[0]
+    images = images_flat.reshape(-1, H, W).contiguous()
+    cams, rho = pushed_state(problem, device)
+    _, rows = pba_mega.build_chunk_mega_plan(problem)
+    c = pba_mega.make_mega_consts(model, problem, rows)
+    N = c.cols.shape[1]
+    n_obs = int((c.timg >= 0).sum())
+    print(f"phase 1: fused kernel vs plain at {K} images of {H}x{W}, model "
+          f"{model}, {n_obs} observations in {N} columns (one zero column)")
+    result = mega_against_plain(model, images, cams, rho, c, "EuRoC scale",
+                                device)
 
     # an image wider than the TPU kernel's 14-bit column field
     imgs, cw, rw, constw, _ = synthetic.wide_image_state(device=device)
@@ -527,7 +632,7 @@ def kernel_phase(pipe, device):
                      warpw[:2] + warpw[3:] + (constw,))
     check(bool((outw[:, constw.timg < 0] == 0).all()),
           "zero columns are not zero")
-    return max_err, ms, plain_ms, bound_ms
+    return result
 
 
 def slice_phase(pipe, device, se3):
@@ -1940,21 +2045,70 @@ def geo_phase(device, card: str, se3) -> float:
 
 
 
-def sfm_phase(device, card: str) -> int:
+def drive_sfm(pipe, runner, seq, ate_bound: float, phase: int, device):
+    """Drive ``runner`` (``pipe.run`` or ``run_global_init(pipe)``) as the
+    main path, the counts from 0, to ``Stage.DONE``; print the stages,
+    counters and summary; check at least SFM_REGISTERED of ``seq``'s
+    images registered, the cam-0 ATE at most ``ate_bound``, the RMS at
+    most SFM_RMS_PX, exactly two Hamming launches (``match_stereo``,
+    ``match_all``) and no other kernel.  Returns (wall s, peak MiB,
+    counts)."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        Stage,
+    )
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    runner()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    check(pipe.stage == Stage.DONE, f"the run stopped at {pipe.stage}")
+
+    t, td = pipe.timings, pipe.timings_dev
+    print("  stages (wall s / device-block s / host s): " + ", ".join(
+        f"{k} {t[k]:.3f}/{td.get(k, 0.0):.3f}/{t[k] - td.get(k, 0.0):.3f}"
+        for k in t if k != "ba_iters") + f"; ba_iters {t.get('ba_iters', 0)}")
+    print("  counters: " + " ".join(
+        f"{k}={v}" for k, v in sorted(pipe.counters.items())))
+    print(f"  {pipe.summary()}")
+    n_img = len(seq.images)
+    check(len(pipe.cameras) >= SFM_REGISTERED * n_img,
+          f"only {len(pipe.cameras)} of {n_img} images registered")
+    m = sfm_run.measure(pipe, seq)
+    print(f"  cam-0 ATE (SE3 alignment, {m['cam0_frames']} frames) "
+          f"{m['ate_m']:.6e} m (bound {ate_bound} m); reprojection RMS "
+          f"{m['rms_px']:.4f} px over {m['observations']} observations "
+          f"(bound {SFM_RMS_PX} px)")
+    check(m["ate_m"] <= ate_bound, f"ATE {m['ate_m']:.3e} m over {ate_bound} m")
+    check(m["rms_px"] <= SFM_RMS_PX, f"reprojection RMS {m['rms_px']:.3f} px")
+    check(counts["hamming"] == 2,
+          f"the run launched the Hamming kernel {counts['hamming']} times, "
+          f"not twice (match_stereo, match_all)")
+    others = {k: v for k, v in counts.items() if k != "hamming" and v}
+    check(not others, f"the run launched other kernels: {others}")
+    print(f"  kernel launches in phase {phase}: {counts}")
+    return wall, peak, counts
+
+
+def sfm_phase(device, card: str):
     """Phase 9: ``SfmPipeline.run`` from images to ``Stage.DONE`` on the
     indoor room, 82 stereo frames, default ``SfmConfig``.  Returns the
-    Hamming launches of the run."""
+    Hamming launches of the run, the finished pipeline (its map as the
+    run left it) and the sequence."""
+    from photometric_bundle_adjustment_tpu_torch import interop
     from photometric_bundle_adjustment_tpu_torch.models import synthetic
-    from photometric_bundle_adjustment_tpu_torch.ops import hamming
     from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
         SfmPipeline,
-        Stage,
     )
     from photometric_bundle_adjustment_tpu_torch.profile_solve import (
         SEED,
         profile_run,
     )
-    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
 
     t0 = time.perf_counter()
     seq = synthetic.synth_stereo_sequence(
@@ -1967,30 +2121,14 @@ def sfm_phase(device, card: str) -> int:
     logs = []
     pipe = SfmPipeline(seq.images, seq.calib, log=logs.append, device=device)
     # the main path, counts from 0
-    reset_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    pipe.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernel_counts()
-    peak = torch.cuda.max_memory_allocated(device) / 2**20
-    check(pipe.stage == Stage.DONE, f"the run stopped at {pipe.stage}")
-
+    wall, peak, counts = drive_sfm(pipe, pipe.run, seq, SFM_ATE_M, 9, device)
     front = ("detect", "match_stereo", "match_all")
-    t, td = pipe.timings, pipe.timings_dev
-    map_s = wall - sum(t.get(k, 0.0) for k in front)
+    map_s = wall - sum(pipe.timings.get(k, 0.0) for k in front)
     print(f"  wall {wall:.3f} s; sfm_keyframes_per_s "
           f"{FRONT_FRAMES / wall:.3f} (the map stages {map_s:.3f} s, "
           f"{map_s / wall:.1%} of the wall); device blocks "
           f"{pipe.device_seconds:.3f} s, host {wall - pipe.device_seconds:.3f}"
           f" s; peak {peak:.1f} MiB")
-    print("  stages (wall s / device-block s / host s): " + ", ".join(
-        f"{k} {t[k]:.3f}/{td.get(k, 0.0):.3f}/{t[k] - td.get(k, 0.0):.3f}"
-        for k in t if k != "ba_iters") + f"; ba_iters {t.get('ba_iters', 0)}")
-    print("  counters: " + " ".join(
-        f"{k}={v}" for k, v in sorted(pipe.counters.items())))
     rounds = sum(s.startswith("Selected ") for s in logs)
     n_obs = sum(len(lm.obs) for lm in pipe.landmarks.values())
     print(f"  BA solves {pipe.counters.get('ba_solves', 0)}, localisation "
@@ -1998,30 +2136,13 @@ def sfm_phase(device, card: str) -> int:
           f"candidate rounds, cameras {len(pipe.cameras)} of {n_img}, "
           f"landmarks {len(pipe.landmarks)}, observations {n_obs}, outlier "
           f"tracks {len(pipe.outlier_tracks)}")
-    print(f"  {pipe.summary()}")
     for line in logs[-4:-2]:
         print(f"  log: {line}")
 
-    check(len(pipe.cameras) >= SFM_REGISTERED * n_img,
-          f"only {len(pipe.cameras)} of {n_img} images registered")
-    m = sfm_run.measure(pipe, seq)
-    ate, rms = m["ate_m"], m["rms_px"]
-    print(f"  cam-0 ATE (SE3 alignment, {m['cam0_frames']} frames) "
-          f"{ate:.6e} m (bound {SFM_ATE_M} m); reprojection RMS {rms:.4f} "
-          f"px over {m['observations']} observations (bound {SFM_RMS_PX} "
-          f"px)")
-    check(ate <= SFM_ATE_M, f"ATE {ate:.3e} m over {SFM_ATE_M} m")
-    check(rms <= SFM_RMS_PX, f"reprojection RMS {rms:.3f} px")
-    check(counts["hamming"] == 2 and hamming.KERNEL_LAUNCHES == 2,
-          f"the run launched the Hamming kernel {counts['hamming']} times, "
-          f"not twice (match_stereo, match_all)")
-    others = {k: v for k, v in counts.items() if k != "hamming" and v}
-    check(not others, f"the run launched other kernels: {others}")
-    print(f"  kernel launches in phase 9: {counts}")
-
     # one more BA solve under the profiler, of the finished map with its
     # inverse depths perturbed by SFM_PROFILE_NOISE (seeded), so that the
-    # solve iterates as the run's solves do
+    # solve iterates as the run's solves do; the map is restored after it
+    finished = interop.map_state_to_numpy(pipe)
     rng = np.random.default_rng(SEED)
     for lm in pipe.landmarks.values():
         lm.inv_depth *= 1.0 + SFM_PROFILE_NOISE * rng.normal()
@@ -2035,8 +2156,183 @@ def sfm_phase(device, card: str) -> int:
           f"({prof['device_kernels_per_run'] / max(iters, 1):.0f} an "
           f"iteration), device busy {prof['device_busy_ms']:.1f} ms "
           f"({100 * prof['device_busy_share']:.1f}%); {ba_line}")
+    interop.set_map_state(pipe, finished)
+    print(card)
+    return counts["hamming"], pipe, seq
+
+
+def refine_phase(pipe, seq, device, card: str):
+    """Phase 10: the megakernel against its plain version on the level-0
+    problem of phase 9's finished map, then ``apps/pba.refine_map`` (the
+    app's defaults) on that map.  Returns the megakernel's launches in
+    the refinement and (max_abs_err, ms, plain_ms, bound_ms) of the
+    comparison."""
+    from photometric_bundle_adjustment_tpu_torch.apps import pba as pba_app
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    n_patch = sum(len(lm.obs) - 1 for lm in pipe.landmarks.values())
+    before = sfm_run.measure(pipe, seq)
+    print(f"phase 10: apps/pba's refine_map on phase 9's map: "
+          f"{len(pipe.cameras)} cameras, {len(pipe.landmarks)} landmarks, "
+          f"{n_patch} patch observations; {LEVELS} levels, "
+          f"{MAX_ITERATIONS} iterations, Huber {HUBER}, f32")
+    # the kernel on this map's level-0 problem (the refinement's first
+    # build at level 0 starts from it), outside the counted run
+    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
+        pipe, device=device)
+    model = pipe.calib.cam_types[0]
+    _, rows = pba_mega.build_chunk_mega_plan(problem)
+    c = pba_mega.make_mega_consts(model, problem, rows)
+    print(f"  fused kernel vs plain on its level-0 problem: model {model}, "
+          f"{int((c.timg >= 0).sum())} observations in {c.cols.shape[1]} "
+          f"columns")
+    compared = mega_against_plain(
+        model, images_flat.reshape(-1, H, W).contiguous(),
+        problem.cam_states, problem.inv_depth, c, "phase 9's map", device)
+    del problem, images_flat, c
+
+    logs = []
+    # the main path, counts from 0
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    levels = pba_app.refine_map(pipe, iterations=MAX_ITERATIONS, huber=HUBER,
+                                levels=LEVELS, log=logs.append,
+                                device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    for lv in levels:
+        print(f"  level {lv['level']} ({lv['W']}x{lv['H']}): set-up "
+              f"{lv['setup_s']:.3f} s, solve {lv['solve_s']:.3f} s, "
+              f"{lv['iterations']} iterations "
+              f"({lv['iterations'] / lv['solve_s']:.2f} LM it/s), "
+              f"{lv['tries']} tries, cost {lv['initial_cost']:.6e} -> "
+              f"{lv['cost']:.6e}")
+        check(lv["cost"] < lv["initial_cost"],
+              f"the cost did not fall at level {lv['level']}")
+        check(math.isfinite(lv["cost"]), f"level {lv['level']}: cost not finite")
+    after = sfm_run.measure(pipe, seq)
+    print(f"  wall {wall:.3f} s; peak {peak:.1f} MiB; {logs[-1].strip()}")
+    print(f"  cam-0 ATE {before['ate_m']:.6e} -> {after['ate_m']:.6e} m "
+          f"(bound {PBA_ATE_M} m); reprojection RMS {before['rms_px']:.4f} "
+          f"-> {after['rms_px']:.4f} px")
+    check(after["ate_m"] <= PBA_ATE_M,
+          f"refined ATE {after['ate_m']:.3e} m over {PBA_ATE_M} m")
+    others = {k: v for k, v in counts.items() if k != "pba_mega" and v}
+    check(counts["pba_mega"] > 0, "the refinement never launched #1")
+    check(not others, f"the refinement launched other kernels: {others}")
+    print(f"  kernel launches in phase 10: {counts}")
+    print(card)
+    return counts["pba_mega"], compared
+
+
+def global_init_phase(seq, device, card: str) -> int:
+    """Phase 11: ``apps/sfm --global-init`` (``run_global_init``) on phase
+    9's images, matched again.  Returns the Hamming launches."""
+    from photometric_bundle_adjustment_tpu_torch.apps.sfm import (
+        run_global_init,
+    )
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        SfmPipeline,
+    )
+
+    print(f"phase 11: apps/sfm --global-init on phase 9's {len(seq.images)} "
+          f"images (detected and matched again)")
+    pipe = SfmPipeline(seq.images, seq.calib, log=lambda s: None,
+                       device=device)
+    # the main path, counts from 0
+    wall, peak, counts = drive_sfm(pipe, lambda: run_global_init(pipe), seq,
+                                   GLOBAL_ATE_M, 11, device)
+    st = pipe.global_init_stats
+    rot, tr, tri = st["rotation"], st["translation"], st["triangulation"]
+    print(f"  component: {st['cameras']} cameras, {st['edges']} edges")
+    print(f"  rotation averaging: cost {rot['initial_cost']:.6e} -> "
+          f"{rot['cost']:.6e} in {rot['iterations']} iterations, "
+          f"{rot['seconds']:.3f} s")
+    print("  translation averaging: " + "; ".join(
+        f"cost {t['initial_cost']:.6e} -> {t['cost']:.6e} in "
+        f"{t['iterations']} iterations"
+        + (f" (rescaled x{t['scale']:.4f})" if "scale" in t else "")
+        for t in tr["solves"]) + f"; {tr['seconds']:.3f} s")
+    print(f"  triangulation loop: {tri['pairs']} camera pairs, "
+          f"{pipe.counters.get('triangulate_calls', 0)} batches, "
+          f"{tri['landmarks']} landmarks, {tri['seconds']:.3f} s")
+    print(f"  wall {wall:.3f} s; peak {peak:.1f} MiB")
     print(card)
     return counts["hamming"]
+
+
+def calibration_phase(device, card: str):
+    """Phase 12: ``models/calibration.calibrate`` at euroc_calib's size
+    for a ds and a kb4 rig, in f64 on the card and on the CPU."""
+    import os
+
+    from photometric_bundle_adjustment_tpu_torch.core import cameras
+    from photometric_bundle_adjustment_tpu_torch.io import calib_io
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        calibration,
+        synthetic,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(f"phase 12: calibration, {CALIB_FRAMES} stereo frames of the "
+          f"AprilGrid, {CALIB_NOISE_PX} px noise, f64")
+    for model, path in CALIB_FILES:
+        c = calib_io.load_calibration(os.path.join(root, path))
+        g = synthetic.synth_aprilgrid(c.intrinsics, c.T_i_c, model,
+                                      n_frames=CALIB_FRAMES,
+                                      noise_px=CALIB_NOISE_PX, seed=CALIB_SEED)
+        frames = sorted({f for f, _ in g.corners})
+        rng = np.random.default_rng(CALIB_SEED + 1)
+        start = np.array(g.intrinsics)
+        start[:, :4] += rng.normal(0.0, CALIB_START_PX, (len(start), 4))
+        start[:, 4:] *= 1.05
+        intr0 = np.stack([cameras.initialize(model, torch.as_tensor(k))
+                          .numpy() for k in start])
+        T_w_i0 = np.stack([g.init_poses[(f, 0)] for f in frames])
+        out = []
+        for dev in (device, torch.device("cpu")):
+            data = calibration.build_data(
+                g.corners, frames, calibration.aprilgrid_corners_3d(),
+                device=dev)
+            init = calibration.CalibParams(*(
+                torch.as_tensor(x, dtype=torch.float64, device=dev)
+                for x in (T_w_i0, g.T_i_c, intr0)))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, res = calibration.calibrate(model, data, init)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out.append(([x.cpu().numpy() for x in params], res,
+                        time.perf_counter() - t0))
+        (pg, rg, sg), (pc, rc, sc) = out
+        n_res = 2 * data.uv.shape[0]
+        rmse = math.sqrt(2.0 * float(rg.cost) / n_res)
+        gap = calibration.projection_gap(model, pg[2], g.intrinsics, g.W,
+                                         g.H)
+        rel = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(pg, pc))
+        print(f"  {model}: {n_res} residuals, {6 * len(frames) + 28} "
+              f"tangent dims; card {rg.iterations} iterations in {sg:.3f} s, "
+              f"CPU {rc.iterations} in {sc:.3f} s; cost "
+              f"{float(rg.initial_cost):.6e} -> {float(rg.cost):.6e}, RMSE "
+              f"{rmse:.5f} px (noise {CALIB_NOISE_PX}); |fx fy cx cy - "
+              f"truth| max {np.abs(pg[2][:, :4] - g.intrinsics[:, :4]).max():.4f}"
+              f" px; projection gap {gap:.4f} px (bound {CALIB_INTR_PX}); "
+              f"card vs CPU {rel:.3e} relative (bound {CALIB_REL})")
+        check(abs(rmse - CALIB_NOISE_PX) <= CALIB_RMSE_SHARE * CALIB_NOISE_PX,
+              f"{model}: RMSE {rmse:.4f} px against noise {CALIB_NOISE_PX}")
+        check(gap <= CALIB_INTR_PX, f"{model}: intrinsics {gap:.3f} px off")
+        check(rel <= CALIB_REL, f"{model}: card vs CPU {rel:.3e}")
+        check(np.array_equal(pg[1][0], g.T_i_c[0]),
+              f"{model}: camera 0's extrinsics moved")
+    print(card)
 
 
 def main() -> int:
@@ -2083,7 +2379,12 @@ def main() -> int:
     grid, window = probe_phase(device)
     geo_phase(device, card, se3)
     front["launches"] += ransac_phase(seq_pipe, seq, device, se3)
-    front["launches"] += sfm_phase(device, card)
+    n_ham, sfm_pipe, sfm_seq = sfm_phase(device, card)
+    front["launches"] += n_ham
+    n_mega, (err10, _, _, _) = refine_phase(sfm_pipe, sfm_seq, device, card)
+    launches += n_mega
+    front["launches"] += global_init_phase(sfm_seq, device, card)
+    calibration_phase(device, card)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",
@@ -2091,7 +2392,7 @@ def main() -> int:
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/pba_mega.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/pba_mega.py:456",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, err10),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -10,9 +10,9 @@ pipeline to completion (next_step loop, sfm.cpp:472-478) on ``--device``
 the run's stats record (``--stats-out``: wall time, per-stage wall and
 device-block seconds, the pipeline's counters) and saves the map as the
 JAX package's pickle or, for a ``.cereal`` path, the reference's binary
-archive.  ``--global-init`` (the rotation/translation-averaging
-bootstrap) needs the pose graph, which the port does not have yet: the
-app refuses the flag.
+archive.  ``--global-init`` replaces the incremental bootstrap by
+rotation and translation averaging over the match graph
+(``pipeline/global_init``, through ``run_global_init``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,22 @@ import json
 import os
 import pickle
 import time
+
+
+def run_global_init(pipe) -> None:
+    """``--global-init``'s run: step until the tracks exist, estimate every
+    connected camera by averaging (``global_init.global_initialize``),
+    then BA and the rest of ``run`` from ``Stage.OPTIMIZE``."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline import global_init
+    from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
+        Stage,
+    )
+
+    while not pipe.tracks and pipe.next_step():
+        pass
+    global_init.global_initialize(pipe, log=pipe.log)
+    pipe.stage = Stage.OPTIMIZE
+    pipe.run()
 
 
 def main(argv=None):
@@ -54,14 +70,11 @@ def main(argv=None):
              "live-tunable parameter panel, sfm.cpp:197-261)")
     parser.add_argument(
         "--global-init", action="store_true",
-        help="not available in this package yet: the averaging bootstrap "
-             "needs the pose graph")
+        help="initialise every connected camera at once by rotation and "
+             "translation averaging over the match graph, then triangulate "
+             "and run BA, instead of the incremental bootstrap")
     args = parser.parse_args(argv)
 
-    if args.global_init:
-        parser.error("--global-init is not available in the PyTorch port "
-                     "yet: pipeline/global_init.py needs models/pose_graph.py "
-                     "(ROADMAP Queue 1, slice E)")
     if str(args.show_gui).lower() in ("true", "1", "yes"):
         print("[sfm] --show-gui requested but this app is headless; "
               "ignoring.")
@@ -94,7 +107,10 @@ def main(argv=None):
         pipe.bow_voc = bow.BowVocabulary.load(args.voc_path)
 
     t0 = time.time()
-    pipe.run()
+    if args.global_init:
+        run_global_init(pipe)
+    else:
+        pipe.run()
     wall = time.time() - t0
     print(pipe.summary())
     print("Timings: "

@@ -6,10 +6,11 @@ on a uniform ``(8,)`` parameter vector, selected by name ("pinhole",
 
 The solvers' Jacobians are analytic (``core/camera_slab.py``); the
 forward-mode default of ``optim/ba.forward_mode_rj`` differentiates
-``project`` with ``torch.func.jvp``, never ``unproject`` (the anchor rays
-are constants).  The kb4 inverse keeps the reference's 5 fixed Newton
-steps; its implicit-function gradient becomes a
-``torch.autograd.Function`` when a caller first needs it.
+``project`` with ``torch.func.jvp``.  The kb4 inverse keeps the
+reference's 5 fixed Newton steps for its value and takes its derivative
+from the implicit function theorem (``_KB4Theta``, a
+``torch.autograd.Function``), as the JAX package's ``custom_jvp`` does.
+``initialize`` starts a model's 8 parameters from double-sphere ones;
 ``test_params`` gives the reference's test intrinsics.
 """
 
@@ -136,13 +137,72 @@ def kb4_project(params: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
-def _kb4_theta_from_ru(k: torch.Tensor, r_u: torch.Tensor) -> torch.Tensor:
+def _kb4_newton(k: torch.Tensor, r_u: torch.Tensor) -> torch.Tensor:
     """Solve d(theta) = r_u for theta: 5 Newton steps from 0, as in the
     reference (camera_models.h:372-375)."""
     theta = torch.zeros_like(r_u)
     for _ in range(5):
         theta = theta - (_kb4_dtheta(k, theta) - r_u) / _kb4_ddtheta(k, theta)
     return theta
+
+
+def _kb4_theta_partials(k: torch.Tensor, theta: torch.Tensor):
+    """d'(theta) and the partials of d(theta) in k1..k4 at fixed theta."""
+    t2 = theta * theta
+    t3 = t2 * theta
+    dpoly = torch.stack([t3, t3 * t2, t3 * t2 * t2, t3 * t2 * t2 * t2],
+                        dim=-1)
+    return _kb4_ddtheta(k, theta), dpoly
+
+
+class _KB4Theta(torch.autograd.Function):
+    """theta(k, r_u) of ``_kb4_newton`` with the implicit-function
+    derivative of f(theta) = d(theta) - r_u = 0 (the JAX package's
+    ``custom_jvp``, cameras.py:137-160):
+
+        dtheta = (dr_u - sum_i d d(theta)/dk_i dk_i) / d'(theta).
+
+    Differentiating the 5 unrolled steps instead is wrong wherever they
+    have not converged.  ``jvp`` serves ``torch.func.jacfwd`` (as
+    ``optim/lm.lm_solve`` takes J), ``backward`` reverse mode, and the
+    generated vmap rule ``torch.func.vmap``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(k, r_u):
+        return _kb4_newton(k, r_u)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        k, r_u = inputs
+        ctx.save_for_backward(k, r_u, output)
+        ctx.save_for_forward(k, r_u, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        k, r_u, theta = ctx.saved_tensors
+        dd, dpoly = _kb4_theta_partials(k, theta)
+        g_r = g / dd
+        g_k = -(g_r[..., None] * dpoly)
+        return g_k.sum_to_size(k.shape), g_r.sum_to_size(r_u.shape)
+
+    @staticmethod
+    def jvp(ctx, dk, dr_u):
+        k, r_u, theta = ctx.saved_tensors
+        dd, dpoly = _kb4_theta_partials(k, theta)
+        num = torch.zeros_like(theta)
+        if dr_u is not None:
+            num = num + dr_u
+        if dk is not None:
+            num = num - torch.sum(dpoly * dk, dim=-1)
+        return num / dd
+
+
+def _kb4_theta_from_ru(k: torch.Tensor, r_u: torch.Tensor) -> torch.Tensor:
+    """Solve d(theta) = r_u for theta (``_kb4_newton``), differentiated by
+    the implicit function theorem (``_KB4Theta``)."""
+    return _KB4Theta.apply(k, r_u)
 
 
 def kb4_unproject(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -197,6 +257,27 @@ def unproject_unit(model: str, params: torch.Tensor,
     """Unproject and normalise to a unit bearing vector."""
     v = unproject(model, params, uv)
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+
+def initialize(model: str, ds_intrinsics) -> torch.Tensor:
+    """An 8-vector for ``model`` from double-sphere-style intrinsics
+    (AbstractCamera::initialize, camera_models.h:477-519): ds keeps them,
+    the others keep fx, fy, cx, cy and zero the rest, eucm then sets
+    alpha 0.5 and beta 1."""
+    p = torch.as_tensor(ds_intrinsics).clone()
+    if model == "ds":
+        return p
+    p[4:] = 0.0
+    if model == "eucm":
+        p[4], p[5] = 0.5, 1.0
+    return p
+
+
+def project_batch(model: str, params: torch.Tensor,
+                  pts: torch.Tensor) -> torch.Tensor:
+    """``project`` over a batch of points (the JAX package's jitted
+    form; nothing is compiled here)."""
+    return project(model, params, pts)
 
 
 def test_params(model: str, dtype=torch.float64) -> torch.Tensor:

@@ -43,6 +43,10 @@ def hat_so3(phi: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def quat_identity(dtype=torch.float64) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype)
+
+
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
     x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
@@ -163,6 +167,10 @@ def so3_log(q: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def identity(dtype=torch.float64) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype)
+
+
 def translation(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3]
 
@@ -173,6 +181,20 @@ def rotation(T: torch.Tensor) -> torch.Tensor:
 
 def make(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, q], dim=-1)
+
+
+def from_matrix(M: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) or (..., 3, 4) homogeneous matrix -> (..., 7) pose."""
+    return make(M[..., :3, 3], quat_from_matrix(M[..., :3, :3]))
+
+
+def to_matrix(T: torch.Tensor) -> torch.Tensor:
+    """(..., 7) pose -> (..., 4, 4) homogeneous matrix."""
+    R = quat_to_matrix(rotation(T))
+    top = torch.cat([R, translation(T)[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
+                          device=T.device).expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def compose(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
@@ -241,3 +263,9 @@ def log(T: torch.Tensor) -> torch.Tensor:
 def right_plus(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Ceres-style manifold plus: T * exp(delta)."""
     return compose(T, exp(delta))
+
+
+def normalize(T: torch.Tensor) -> torch.Tensor:
+    """Re-normalise the quaternion part (drift control after many
+    updates)."""
+    return make(translation(T), quat_normalize(rotation(T)))

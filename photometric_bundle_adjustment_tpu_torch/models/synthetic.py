@@ -29,6 +29,12 @@ coordinates), for the SfM front end: at 480x752 each image yields about
 EuRoC's 350 to 450 Shi-Tomasi corners.  Its ``correspondence`` maps a pixel
 of one image to the pixel of the same room point in another image, from
 the rendered geometry.
+
+``synth_aprilgrid`` makes the corner detections of a calibration
+sequence: a stereo rig of known intrinsics and extrinsics moving in front
+of the 6x6 AprilGrid, its corners projected, those outside the image
+dropped, Gaussian pixel noise added; the input of ``models/calibration``
+and ``apps/calibrate`` where the reference's euroc_calib is absent.
 """
 
 from __future__ import annotations
@@ -644,3 +650,91 @@ def synth_stereo_sequence(n_frames: int = 82, H: int = 480, W: int = 752,
         center=center.numpy(),
         radius=room_radius,
     )
+
+
+@dataclass
+class SynthAprilGrid:
+    model: str
+    intrinsics: np.ndarray      # (num_cams, 8) the truth
+    T_i_c: np.ndarray           # (num_cams, 7) camera-to-body, the truth
+    T_w_i: np.ndarray           # (F, 7) body-to-grid per frame, the truth
+    corners: dict               # {(frame, cam): {"corners", "corner_ids"}}
+    init_poses: dict            # {(frame, cam): T_w_c (7,)}, perturbed
+    H: int
+    W: int
+
+
+def _look_at(c: np.ndarray, target: np.ndarray, roll: float) -> np.ndarray:
+    """A camera-to-world rotation whose z axis points from ``c`` at
+    ``target``, turned by ``roll`` about it."""
+    z = target - c
+    z = z / np.linalg.norm(z)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    cr, sr = np.cos(roll), np.sin(roll)
+    return np.stack([cr * x + sr * y, -sr * x + cr * y, z], axis=1)
+
+
+# synth_aprilgrid's image size (EuRoC's) and the noise of its initial
+# poses (m, rad per axis)
+_CALIB_H, _CALIB_W = 480, 752
+_INIT_POSE_NOISE = (0.01, 0.01)
+
+
+def synth_aprilgrid(intrinsics, T_i_c, model: str, n_frames: int = 52,
+                    noise_px: float = 0.1, seed: int = 0) -> SynthAprilGrid:
+    """Corner detections of the 6x6 AprilGrid (tag 0.088 m, spacing 0.3;
+    ``calibration.aprilgrid_corners_3d``) seen by a rig of ``intrinsics``
+    ((num_cams, 8) of ``model``) and extrinsics ``T_i_c`` over
+    ``n_frames`` body poses, all drawn from numpy ``seed``.
+
+    Camera 0 is placed 0.25 to 0.8 m in front of the grid, up to 0.6 m
+    off its centre, looking at a point up to 0.3 m from the centre, with
+    up to 0.3 rad of roll; the body pose follows from its extrinsics.  At
+    the defaults this gives euroc_calib's size: 52 stereo frames, about
+    24,900 residuals.  Corners behind a
+    camera or outside its 752 x 480 image are dropped; the rest get N(0,
+    ``noise_px``) pixel noise.  ``init_poses`` holds every camera's pose
+    (T_w_c = T_w_i T_i_c) perturbed by 1 cm and 0.01 rad per axis, as the
+    reference's initial poses (calibration.cpp:322-326)."""
+    from photometric_bundle_adjustment_tpu_torch.models import calibration
+
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    H, W = _CALIB_H, _CALIB_W
+    intr = np.asarray(intrinsics, np.float64)
+    T_i_c = np.asarray(T_i_c, np.float64)
+    grid = calibration.aprilgrid_corners_3d()
+    centre = 0.5 * (grid.min(0) + grid.max(0))
+    T_ic_t = torch.as_tensor(T_i_c, dtype=f64)
+    poses, corners, init = [], {}, {}
+    for f in range(n_frames):
+        c = centre + np.r_[rng.uniform(-0.6, 0.6, 2),
+                           -rng.uniform(0.25, 0.8)]
+        target = centre + np.r_[rng.uniform(-0.3, 0.3, 2), 0.0]
+        R = _look_at(c, target, rng.uniform(-0.3, 0.3))
+        T_w_c0 = torch.as_tensor(np.r_[c, se3.quat_from_matrix(
+            torch.as_tensor(R)).numpy()], dtype=f64)
+        T_w_i = se3.compose(T_w_c0, se3.inverse(T_ic_t[0]))
+        poses.append(T_w_i.numpy())
+        for cam in range(len(intr)):
+            T_w_c = se3.compose(T_w_i, T_ic_t[cam])
+            p_c = se3.act(se3.inverse(T_w_c),
+                          torch.as_tensor(grid, dtype=f64))
+            uv = cameras.project(model, torch.as_tensor(intr[cam]),
+                                 p_c).numpy()
+            ok = ((p_c[:, 2].numpy() > 0.05) & np.all(np.isfinite(uv), 1)
+                  & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                  & (uv[:, 1] >= 0) & (uv[:, 1] < H))
+            ids = np.nonzero(ok)[0].astype(np.int32)
+            noisy = uv[ids] + rng.normal(0.0, noise_px, (len(ids), 2))
+            if len(ids):
+                corners[(f, cam)] = {"corners": noisy, "corner_ids": ids}
+            d = np.r_[rng.normal(0.0, _INIT_POSE_NOISE[0], 3),
+                      rng.normal(0.0, _INIT_POSE_NOISE[1], 3)]
+            init[(f, cam)] = se3.right_plus(
+                T_w_c, torch.as_tensor(d)).numpy()
+    return SynthAprilGrid(model=model, intrinsics=intr, T_i_c=T_i_c,
+                          T_w_i=np.stack(poses), corners=corners,
+                          init_poses=init, H=H, W=W)

@@ -1,16 +1,18 @@
 """One SfM run from images to a finished map on the indoor room.
 
     python -m photometric_bundle_adjustment_tpu_torch.scripts.sfm_run \\
-        [--frames 82] [--device cuda|cpu] [--quiet]
+        [--frames 82] [--device cuda|cpu] [--global-init] [--quiet]
 
 Renders ``synthetic.synth_stereo_sequence(room_radius=INDOOR_ROOM_RADIUS)``
 (480x752, seed 0) and runs ``SfmPipeline.run`` with the default
-``SfmConfig`` on ``--device`` (the card by default), then prints the stage
-times, the
+``SfmConfig`` on ``--device`` (the card by default), or with
+``--global-init`` ``apps/sfm``'s averaging bootstrap
+(``apps.sfm.run_global_init``), then prints the stage times, the
 counters, the map's size, the cam-0 trajectory's ATE against the rendered
 poses after an SE3 alignment (the stereo baseline fixes the scale) and the
 final map's reprojection RMS; the last line is one JSON object of these.
-``chip_smoke.py`` phase 9 runs the same scene through ``measure``.
+``chip_smoke.py`` phases 9 and 11 run the same scene through
+``measure``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=82)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--global-init", action="store_true",
+                    help="bootstrap by rotation and translation averaging "
+                         "(apps/sfm --global-init)")
     ap.add_argument("--quiet", action="store_true",
                     help="print no pipeline log lines")
     args = ap.parse_args(argv)
@@ -69,13 +74,21 @@ def main(argv=None) -> dict:
     pipe = SfmPipeline(seq.images, seq.calib, device=args.device,
                        log=(lambda *a: None) if args.quiet else print)
     t0 = time.perf_counter()
-    pipe.run()
+    if args.global_init:
+        from photometric_bundle_adjustment_tpu_torch.apps.sfm import (
+            run_global_init,
+        )
+
+        run_global_init(pipe)
+    else:
+        pipe.run()
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
     wall = time.perf_counter() - t0
     out = measure(pipe, seq)
     out.update(
-        frames=args.frames, device=str(pipe.device), wall_s=wall,
+        frames=args.frames, device=str(pipe.device),
+        global_init=args.global_init, wall_s=wall,
         keyframes_per_s=args.frames / wall,
         device_s=pipe.device_seconds,
         timings_s=dict(pipe.timings), timings_dev_s=dict(pipe.timings_dev),

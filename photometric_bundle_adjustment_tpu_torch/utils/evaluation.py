@@ -1,8 +1,9 @@
-"""Trajectory evaluation: absolute trajectory error after Umeyama
-alignment.
+"""Trajectory and map evaluation: absolute trajectory error after
+Umeyama alignment, reprojection statistics and the map's counters.
 
-Copy of the numpy half of
-``photometric_bundle_adjustment_tpu/utils/evaluation.py``.
+Copy of ``photometric_bundle_adjustment_tpu/utils/evaluation.py``; the
+map helpers take a pipeline of either package (``compute_projections``
+runs the port's batched reprojection on the pipeline's device).
 """
 
 from __future__ import annotations
@@ -47,3 +48,34 @@ def trajectory_from_cameras(cameras: dict, cam_id: int = 0) -> np.ndarray:
     """(N, 3) positions of camera ``cam_id`` ordered by frame id."""
     fcids = sorted(f for f in cameras if f[1] == cam_id)
     return np.stack([np.asarray(cameras[f])[:3] for f in fcids])
+
+
+def reprojection_stats(pipe) -> dict:
+    """Summary statistics over all inlier observations of a pipeline map."""
+    res = pipe.compute_projections()
+    if res is None:
+        return {"count": 0}
+    rows, err, _flags = res
+    inlier = ~np.fromiter((r[3] for r in rows), bool, len(rows))
+    errs = np.asarray(err)[inlier]
+    if len(errs) == 0:
+        return {"count": 0}
+    return {
+        "count": int(len(errs)),
+        "mean_px": float(errs.mean()),
+        "median_px": float(np.median(errs)),
+        "p95_px": float(np.percentile(errs, 95)),
+        "max_px": float(errs.max()),
+    }
+
+
+def map_stats(pipe) -> dict:
+    """The reference's summary() counters (sfm.cpp:1170-1184)."""
+    return {
+        "cameras": len(pipe.cameras),
+        "landmarks": len(pipe.landmarks),
+        "observations": sum(len(lm.obs) for lm in pipe.landmarks.values()),
+        "outlier_tracks": len(pipe.outlier_tracks),
+        "outlier_observations": sum(
+            len(lm.outlier_obs) for lm in pipe.landmarks.values()),
+    }

@@ -18,6 +18,10 @@ launches the Hamming kernel once.  The SfM map stages' batched geometry
 1e-9, a localisation wave within 1e-6; ``SfmPipeline.run`` on the card
 from images to a finished map, held to the rendered truth.
 
+Slice E on the card against the CPU: ``apps/pba.refine_map`` of a map the
+port's SfM built (the refinement's tolerances), ``calibrate`` in f64
+(within 1e-9 relative) and ``global_initialize`` (within 1e-6).
+
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
 
@@ -856,3 +860,110 @@ def test_sfm_run_on_card(cuda):
         assert m["cameras"] == 8 and m["ate_m"] < 5e-3 and m["rms_px"] < 1.0
         if dev == cuda:
             assert hamming.KERNEL_LAUNCHES - before == 2
+
+
+def _sfm_pipe_to_tracks(n_frames=4):
+    """A CPU pipeline of the indoor room's first frames, run until its
+    tracks exist, and the sequence."""
+    seq = synthetic.synth_stereo_sequence(
+        n_frames=n_frames, room_radius=synthetic.INDOOR_ROOM_RADIUS,
+        device="cpu")
+    p = SfmPipeline(seq.images, seq.calib, log=lambda *a: None, device="cpu")
+    while not p.tracks and p.next_step():
+        pass
+    return p, seq
+
+
+def test_refine_sfm_map_on_card_matches_cpu(cuda):
+    """``apps/pba.refine_map`` of an SfM map the port built (4 frames of
+    the indoor room, 3 levels of 3 iterations) on the card and on the CPU
+    from the same map: every level's initial cost within rtol 2e-4, the
+    final cost within rtol 5e-3, poses within 1e-4, the megakernel
+    launched on the card only, the cost falling at every level."""
+    from photometric_bundle_adjustment_tpu_torch.apps import pba as pba_app
+
+    p, _ = _sfm_pipe_to_tracks()
+    p.run()
+    out = {}
+    for dev in (cuda, "cpu"):
+        q = copy.deepcopy(p)
+        before = pba_mega.KERNEL_LAUNCHES
+        lv = pba_app.refine_map(q, iterations=3, log=lambda *a: None,
+                                device=dev)
+        out[str(dev)] = (q, lv, pba_mega.KERNEL_LAUNCHES - before)
+    (qg, lg, ng), (qc, lc, nc) = out[str(cuda)], out["cpu"]
+    assert ng > 0 and nc == 0
+    np.testing.assert_allclose([v["initial_cost"] for v in lg],
+                               [v["initial_cost"] for v in lc], rtol=2e-4)
+    np.testing.assert_allclose(lg[-1]["cost"], lc[-1]["cost"], rtol=5e-3)
+    for v in lg:
+        assert v["cost"] < v["initial_cost"]
+    keys = sorted(p.cameras)
+    np.testing.assert_allclose(np.stack([qg.cameras[k] for k in keys]),
+                               np.stack([qc.cameras[k] for k in keys]),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["ds", "kb4"])
+def test_calibrate_on_card_matches_cpu(cuda, model):
+    """``models/calibration.calibrate`` in f64 on the card and on the CPU
+    on 8 synthetic AprilGrid frames: parameters within 1e-9 relative."""
+    import os
+
+    from photometric_bundle_adjustment_tpu_torch.core import cameras
+    from photometric_bundle_adjustment_tpu_torch.io import calib_io
+    from photometric_bundle_adjustment_tpu_torch.models import calibration
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = {"ds": "refbaseline/artifacts/ref_opt_calib.json",
+            "kb4": "tests/data/opt_calib_kb4.json"}[model]
+    c = calib_io.load_calibration(os.path.join(root, path))
+    g = synthetic.synth_aprilgrid(c.intrinsics, c.T_i_c, model, n_frames=8)
+    frames = sorted({f for f, _ in g.corners})
+    intr0 = np.array(g.intrinsics)
+    intr0[:, :4] += np.random.default_rng(1).normal(0, 3, (2, 4))
+    intr0 = np.stack([cameras.initialize(model, torch.as_tensor(k)).numpy()
+                      for k in intr0])
+    res = []
+    for dev in (cuda, "cpu"):
+        data = calibration.build_data(g.corners, frames,
+                                      calibration.aprilgrid_corners_3d(),
+                                      device=dev)
+        init = calibration.CalibParams(*(
+            torch.as_tensor(x, dtype=torch.float64, device=dev) for x in (
+                np.stack([g.init_poses[(f, 0)] for f in frames]), g.T_i_c,
+                intr0)))
+        params, r = calibration.calibrate(model, data, init)
+        res.append(([x.cpu().numpy() for x in params], float(r.cost)))
+    (pg, cg), (pc, cc) = res
+    for a, b in zip(pg, pc):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9 * np.abs(b).max())
+    np.testing.assert_allclose(cg, cc, rtol=1e-9)
+
+
+def test_global_initialize_on_card_matches_cpu(cuda):
+    """``pipeline/global_init.global_initialize`` on the card and on the
+    CPU from one pipeline's match table and tracks (4 frames of the indoor
+    room): cameras within 1e-6, the same landmark ids, inverse depths
+    within 1e-6."""
+    from photometric_bundle_adjustment_tpu_torch.pipeline import global_init
+
+    p, seq = _sfm_pipe_to_tracks()
+    out = []
+    for dev in (cuda, "cpu"):
+        q = SfmPipeline(seq.images, seq.calib, log=lambda *a: None,
+                        device=dev)
+        q.corners, q.matches = p.corners, p.matches
+        q.tracks = copy.deepcopy(p.tracks)
+        assert len(global_init.global_initialize(
+            q, log=lambda *a: None)) == 8
+        out.append(interop.map_state_to_numpy(q))
+    got, want = out
+    assert list(got["cameras"]) == list(want["cameras"])
+    for f, T in want["cameras"].items():
+        np.testing.assert_allclose(got["cameras"][f], T, rtol=0, atol=1e-6)
+    assert list(got["landmarks"]) == list(want["landmarks"])
+    np.testing.assert_allclose(
+        [d["inv_depth"] for d in got["landmarks"].values()],
+        [d["inv_depth"] for d in want["landmarks"].values()],
+        rtol=0, atol=1e-6)

@@ -70,7 +70,8 @@ def test_refine_photometric_matches_jax():
 def test_port_imports_and_solves_without_jax():
     """With ``jax`` and the JAX package blocked, every module of the port
     imports (the package is walked, so later slices are covered too), the
-    photometric solve runs, and so does the front end on the CPU."""
+    photometric solve runs, and so do the front end, geometric BA and a
+    kb4 calibration on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -136,6 +137,19 @@ def test_port_imports_and_solves_without_jax():
         T, r = lm_solve(lambda x: x - 2.0, torch.zeros(3, dtype=torch.float64),
                         lambda x, d: x + d, 3)
         assert float(r.cost) < 1e-20, r
+        from photometric_bundle_adjustment_tpu_torch.io import calib_io
+        from photometric_bundle_adjustment_tpu_torch.models import calibration
+        c = calib_io.load_calibration("tests/data/opt_calib_kb4.json")
+        g = synthetic.synth_aprilgrid(c.intrinsics, c.T_i_c, "kb4",
+                                      n_frames=2)
+        fr = sorted({f for f, _ in g.corners})
+        data = calibration.build_data(
+            g.corners, fr, calibration.aprilgrid_corners_3d(), device="cpu")
+        init = calibration.CalibParams(
+            torch.as_tensor(np.stack([g.init_poses[(f, 0)] for f in fr])),
+            torch.as_tensor(g.T_i_c), torch.as_tensor(g.intrinsics))
+        _, r = calibration.calibrate("kb4", data, init, max_iterations=3)
+        assert float(r.cost) < float(r.initial_cost), r
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "photometric_bundle_adjustment_tpu"
                or m.startswith("photometric_bundle_adjustment_tpu.")]
@@ -216,6 +230,10 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
     from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
 
+    from photometric_bundle_adjustment_tpu_torch.apps import calibrate
+    from photometric_bundle_adjustment_tpu_torch.apps import pba as pba_app
+    from photometric_bundle_adjustment_tpu_torch.models import calibration
+
     gp, _, _ = synthetic.synth_ba_problem(K=4, L=8, device="cpu")
     gp_d, gplan_d = fused.densify_problem(gp)
     gp_np = interop.problem_to_numpy(gp)
@@ -265,6 +283,17 @@ def _entry_point_calls():
         "from_map": lambda: SfmPipeline.from_map(
             map_dict, {(0, 0): {"uv": np.zeros((1, 2))}},
             calib_io.Calibration(np.zeros((2, 7)), np.zeros((2, 8)), ["ds"])),
+        "refine_map": lambda: pba_app.refine_map(pipe, levels=1,
+                                                 log=lambda s: None),
+        "apps_pba": lambda: pba_app.main(["--dataset-path", "missing"]),
+        "apps_calibrate": lambda: calibrate.main(["--dataset-path",
+                                                  "missing"]),
+        "calibration_build_data": lambda: calibration.build_data(
+            {(0, 0): {"corners": np.zeros((1, 2)),
+                      "corner_ids": np.zeros(1, np.int32)}}, [0],
+            calibration.aprilgrid_corners_3d()),
+        "sfm_run_global_init": lambda: sfm_run.main(
+            ["--frames", "1", "--quiet", "--global-init"]),
     }
 
 
@@ -277,7 +306,8 @@ def _entry_point_calls():
     "descriptors_from_numpy", "synth_ba_problem", "geometric_build_problem",
     "geometric_problem_from_numpy", "make_geo_solver",
     "make_geo_solver_dense", "photometric_make_solver", "entry", "from_map",
-    "sfm_run"])
+    "sfm_run", "refine_map", "apps_pba", "apps_calibrate",
+    "calibration_build_data", "sfm_run_global_init"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
