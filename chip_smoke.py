@@ -150,12 +150,29 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      and seconds of each; the RMSE within 10% of the noise, the
      intrinsics within ``CALIB_INTR_PX`` of the truth, the card within
      ``CALIB_REL`` of the CPU.  No kernel of the port runs in this phase.
+ 13. the distributed slice (``parallel/``), ``DIST_RANKS`` spawned ranks
+     sharing the card under Gloo, then one rank under NCCL: (a)
+     ``refine_photometric_distributed`` on phase 9's finished map,
+     replicated, camera-partitioned and on one NCCL rank, each against the
+     single-device fused solve on the card (observations per rank, wall
+     and solve seconds, LM and CG iterations, collectives per build and
+     their bytes; the cost falls, ``cost_rel`` at most ``DIST_COST_REL``,
+     the ranks bit-equal, the written-back map's cam-0 ATE at most
+     ``PBA_ATE_M``, no kernel); then one group of ranks runs each
+     collective against its definition, (b) ``dist_fused`` on the real V1
+     map perturbed as phase 7 (b), replicated and partitioned, against
+     the single-device fused solve, (c) ``dist_pgo`` on a pose graph of
+     phase 9's cameras against ``pose_graph_optimization``, and (d)
+     ``ring_match_all_pairs`` on phase 3's descriptors, bit-equal to phase
+     3's ``match_pairs`` result, the Hamming kernel launched once per ring
+     step on every rank.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
 probe and the window read; the megakernel's launches are phases 2 and 10,
 its error the larger of phases 1 and 10, its times phase 1's; the Hamming
-kernel's launches are phases 3, 8, 9 and 11), the card line again, and as
+kernel's launches are phases 3, 8, 9, 11 and 13's ranks), the card line
+again, and as
 the last line
 ``{"ok": true, "device": {...}}``.  The bounds of the megakernel and the
 sampler charge their output on observation columns only.
@@ -163,9 +180,9 @@ sampler charge their output on observation columns only.
 Without CUDA it exits with code 2 and prints no result.
 
 Bounds (``bound_ms``) are reckoned from this run's inputs against the
-H100 SXM's published peaks at 700 W: 3.35 TB/s of device memory, 67
-TFLOP/s of f32 outside the tensor cores and 1,979 TOP/s of dense int8
-tensor-core operations.  The data sheet gives no rate for b1 products,
+H100 SXM's published peaks at 700 W (``utils/roofline.py``): 3.35 TB/s of
+device memory, 67 TFLOP/s of f32 outside the tensor cores and 1,979 TOP/s
+of dense int8 tensor-core operations.  The data sheet gives no rate for b1 products,
 so the Hamming bound takes the faster of the int8 peak and the b1 rate
 phase 0 measured.
 """
@@ -181,6 +198,13 @@ import time
 
 import numpy as np
 import torch
+
+# the H100 SXM's published peaks at 700 W
+from photometric_bundle_adjustment_tpu_torch.utils.roofline import (
+    H100_BYTES_PER_S,
+    H100_F32_OPS_PER_S,
+    H100_INT8_OPS_PER_S,
+)
 
 LEVELS, MAX_ITERATIONS, HUBER = 3, 20, 9.0
 # The kernel contracts a*b + c into FMAs (nvcc's default), the plain
@@ -206,9 +230,6 @@ ROWS_ATOL = 1e-4        # times max|ref| of each row block
 WARP_ULPS = 16
 F64_FACTOR = 2.0
 
-H100_BYTES_PER_S = 3.35e12
-H100_INT8_OPS_PER_S = 1.979e15
-H100_F32_OPS_PER_S = 67e12
 # megakernel f32 operations per observation, counted from
 # csrc/pba_mega.cu: about 150 for the two rotations, M and u; per patch
 # pixel about 12 for q, up to 60 for the projection and its Jacobian
@@ -293,6 +314,28 @@ CALIB_FILES = (("ds", "refbaseline/artifacts/ref_opt_calib.json"),
 CALIB_FRAMES, CALIB_NOISE_PX, CALIB_RMSE_SHARE = 52, 0.1, 0.1
 CALIB_START_PX, CALIB_INTR_PX, CALIB_REL = (5.0, 5.0, 3.0, 3.0), 0.5, 1e-9
 CALIB_SEED = 0
+# phase 13: the distributed slice.  DIST_RANKS ranks share the card under
+# Gloo (NCCL refuses two ranks on one device), then one rank runs under
+# NCCL.  (a) refine_photometric_distributed on phase 9's finished map
+# (MAX_ITERATIONS iterations, Huber HUBER, full resolution), replicated and
+# camera-partitioned, each against the single-device fused solve: the
+# final costs within DIST_COST_REL relative (the distributed parity line
+# of the JAX package's verify notes), the ranks bit-equal, the cam-0 ATE
+# of the written-back map at most PBA_ATE_M.  (b) dist_fused on the real
+# V1 map perturbed as phase 7 (b), DIST_GEO_ITERATIONS iterations, Huber
+# 1, against the single-device fused solve at tests/test_dist_fused.py's
+# bounds (initial cost 1e-6 relative, final 1e-4, cameras 1e-4), the
+# partitioned PCG (DIST_PCG_CG iterations at most) against the replicated
+# solve (cost 1e-4, cameras 1e-3).  (c) dist_pgo on a pose graph of phase
+# 9's cameras, every co-visible pair an edge, perturbed as
+# tests/test_dist_pgo.py:18-38 does (PGO_EDGE_NOISE on the edges,
+# PGO_POSE_NOISE on the poses, f64), against pose_graph_optimization: the
+# cost at most its cost x (1 + 1e-6), every pose within 1e-5.  (d) the
+# ring matcher on phase 3's descriptors, every worklist pair bit-equal to
+# phase 3's match_pairs result.
+DIST_RANKS, DIST_COST_REL = 4, 1e-3
+DIST_GEO_ITERATIONS, DIST_PCG_CG = 8, 600
+PGO_EDGE_NOISE, PGO_POSE_NOISE = 0.02, 0.1
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -1056,10 +1099,7 @@ def dense_phase(pipe, device, se3):
 def probe_phase(device):
     """Phase 6: the grid-overhead probe and the window read.  Returns the
     JSON fields of both."""
-    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
-        H100_BYTES_PER_S,
-        graph_ms,
-    )
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import graph_ms
     from photometric_bundle_adjustment_tpu_torch.scripts import (
         exp_roll,
         grid_overhead as go,
@@ -1314,7 +1354,8 @@ def hamming_bound_ms(valid, a, b, F, b1_rate) -> tuple[float, str]:
 def front_end_phase(device, b1_rate):
     """Phase 3: the SfM front end at EuRoC V1's size; ``b1_rate`` is phase
     0's measured b1 mma rate, for the Hamming bound.  Returns the Hamming
-    kernel's JSON fields."""
+    kernel's JSON fields, the pipeline, the sequence, and the descriptors
+    with their compacted all-pairs matches (phase 13's ring reference)."""
     from photometric_bundle_adjustment_tpu_torch import interop
     from photometric_bundle_adjustment_tpu_torch.features import (
         describe,
@@ -1462,9 +1503,14 @@ def front_end_phase(device, b1_rate):
     bound_ms, bound_by = hamming_bound_ms(valid, a, b, F, b1_rate)
     print(f"  bound {bound_ms:.4f} ms ({bound_by}): the kernel at "
           f"{bound_ms / ms:.1%} of it")
+    ring_ref = dict(desc=desc.cpu(), valid=valid.cpu(), ids=ids,
+                    compact=[x.cpu().numpy() for x in compact],
+                    max_matches=cfg.max_matches_per_pair,
+                    threshold=cfg.feature_match_max_dist,
+                    ratio=cfg.feature_match_test_next_best)
     return dict(launches=launches, max_abs_err=max_err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms), pipe, seq
+                library_ms=library_ms), pipe, seq, ring_ref
 
 
 def pose_error_stats(matches, keys, poses_gt, se3):
@@ -1903,18 +1949,14 @@ def perturb_map(problem, seed: int):
     return poses, rho
 
 
-def real_map_phase(device):
-    """Phase 7 (b): the real EuRoC V1 map on the card against the port's
-    own f64 CPU solve."""
+def real_map_problems(device):
+    """The real EuRoC V1 map of runs/ (``SfmPipeline.from_map`` on its
+    cached corners and the reference calibration) as geometric problems:
+    ``({f32: on device, f64: on the CPU}, camera keys, model)``."""
     import pickle
     from pathlib import Path
 
     from photometric_bundle_adjustment_tpu_torch.io import calib_io
-    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
-    from photometric_bundle_adjustment_tpu_torch.optim import ba
-    from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
-        SchurPlan,
-    )
     from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
         SfmPipeline,
     )
@@ -1926,14 +1968,29 @@ def real_map_phase(device):
         corners = pickle.load(f)["data"]
     calib = calib_io.load_calibration(
         str(root / "refbaseline" / "artifacts" / "ref_opt_calib.json"))
-    ref = reference_trajectory(root / "refbaseline" / "artifacts"
-                               / "run_v1_trajectory.txt")
-    model = calib.cam_types[0]
     problems = {}
     for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
         pipe = SfmPipeline.from_map(m, corners, calib, log=lambda s: None,
                                     device=dev)
         problems[dtype], cams, _ = pipe._build_ba_problem(dtype=dtype)
+    return problems, cams, calib.cam_types[0]
+
+
+def real_map_phase(device):
+    """Phase 7 (b): the real EuRoC V1 map on the card against the port's
+    own f64 CPU solve."""
+    from pathlib import Path
+
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
+    from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
+        SchurPlan,
+    )
+
+    root = Path(__file__).resolve().parent
+    ref = reference_trajectory(root / "refbaseline" / "artifacts"
+                               / "run_v1_trajectory.txt")
+    problems, cams, model = real_map_problems(device)
     p32 = problems[torch.float32]
     K, L = p32.cam_states.shape[0], p32.inv_depth.shape[0]
     print(f"  (b) the real map: {K} cameras, {L} landmarks, "
@@ -2335,10 +2392,262 @@ def calibration_phase(device, card: str):
     print(card)
 
 
+def dist_photometric(pipe, finished, seq, device, before):
+    """Phase 13 (a): ``refine_photometric_distributed`` on phase 9's map
+    (restored before each run): DIST_RANKS ranks replicated and
+    camera-partitioned, then one rank under NCCL."""
+    from photometric_bundle_adjustment_tpu_torch import interop
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    for label, n, part in (("replicated", DIST_RANKS, False),
+                           ("camera-partitioned PCG", DIST_RANKS, True),
+                           ("replicated, one rank", 1, False)):
+        interop.set_map_state(pipe, finished)
+        logs = []
+        # the main path, counts from 0 (the ranks count their own)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, parity = pba_refine.refine_photometric_distributed(
+            pipe, n_ranks=n, max_iterations=MAX_ITERATIONS,
+            huber_delta=HUBER, camera_partition=part, log=logs.append,
+            device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        st = pipe.distributed_stats
+        after = sfm_run.measure(pipe, seq)
+        builds = max(st["builds"], 1)
+        per_build = ", ".join(
+            f"{k} {v / builds:g} x {st['bytes'][k] / v:,.0f} B"
+            for k, v in sorted(st["calls"].items()) if k.startswith("build."))
+        cg = ", ".join(f"{k} {v}" for k, v in sorted(st["calls"].items())
+                       if k.startswith("cg."))
+        for line in logs:
+            if line.startswith("mesh:"):
+                print(f"  {line}")
+        print(f"  (a) {label}: {n} rank(s), backend {st['backend']}; valid "
+              f"observations per rank {st['valid_obs']}; wall {wall:.3f} s "
+              f"(the solve {st['solve_s']:.3f} s on rank 0); "
+              f"{res.iterations} LM iterations, {st['builds']} builds, "
+              f"{st['tries']} tries, {st['cg_iterations']} CG iterations")
+        print(f"      collectives per build: {per_build}; per try: "
+              f"cost.psum {st['calls'].get('cost.psum', 0) / max(st['tries'], 1):g}"
+              + (f"; in CG: {cg}" if cg else ""))
+        print(f"      cost {float(res.initial_cost):.6e} -> "
+              f"{float(res.cost):.6e}; single-device {parity['cost_single']:.6e}"
+              f" ({parity['iters_single']} iterations), cost_rel "
+              f"{parity['cost_rel']:.3e} (bound {DIST_COST_REL}), pose "
+              f"max|d| {parity['pose_maxdiff']:.3e}; ranks bit-equal "
+              f"{st['ranks_bit_equal']}; cam-0 ATE {before['ate_m']:.6e} -> "
+              f"{after['ate_m']:.6e} m (bound {PBA_ATE_M} m), RMS "
+              f"{after['rms_px']:.4f} px")
+        check(st["backend"] == ("nccl" if n == 1 else "gloo"),
+              f"{label}: backend {st['backend']}")
+        check(float(res.cost) < float(res.initial_cost),
+              f"{label}: the cost did not fall")
+        check(parity["cost_rel"] <= DIST_COST_REL,
+              f"{label}: cost_rel {parity['cost_rel']:.3e}")
+        check(st["ranks_bit_equal"], f"{label}: ranks not bit-equal")
+        check(after["ate_m"] <= PBA_ATE_M,
+              f"{label}: ATE {after['ate_m']:.3e} m over {PBA_ATE_M} m")
+        check(not any(counts.values()),
+              f"{label}: the solve launched a kernel: {counts}")
+        check(not part or st["cg_iterations"] > 0, f"{label}: no CG")
+    interop.set_map_state(pipe, finished)
+
+
+def pose_graph_of(finished, seed: int):
+    """(T_gt (K, 7) f64, T0, PoseGraph, fixed) of a finished map's cameras:
+    every co-visible pair an edge, the edges perturbed by PGO_EDGE_NOISE
+    and the poses by PGO_POSE_NOISE (right-plus tangent noise, numpy
+    seed), camera 0 fixed, as tests/test_dist_pgo.py:18-38."""
+    import itertools
+
+    from photometric_bundle_adjustment_tpu_torch.core import se3
+    from photometric_bundle_adjustment_tpu_torch.models import pose_graph as pg
+
+    keys = sorted(finished["cameras"])
+    index = {k: i for i, k in enumerate(keys)}
+    pairs = set()
+    for lm in finished["landmarks"].values():
+        cams = sorted({index[f] for f in lm["obs"]})
+        pairs.update(itertools.combinations(cams, 2))
+    edges = np.array(sorted(pairs), np.int64)
+    rng = np.random.default_rng(seed)
+    T_gt = torch.as_tensor(np.stack([finished["cameras"][k] for k in keys]),
+                           dtype=torch.float64)
+    i, j = torch.as_tensor(edges[:, 0]), torch.as_tensor(edges[:, 1])
+    T_ij = se3.right_plus(se3.compose(se3.inverse(T_gt[i]), T_gt[j]),
+                          torch.as_tensor(rng.normal(0, PGO_EDGE_NOISE,
+                                                     (len(edges), 6))))
+    dpose = rng.normal(0, PGO_POSE_NOISE, (len(keys), 6))
+    dpose[0] = 0.0
+    T0 = se3.right_plus(T_gt, torch.as_tensor(dpose))
+    fixed = torch.zeros(len(keys), dtype=torch.bool)
+    fixed[0] = True
+    graph = pg.PoseGraph(edge_i=i, edge_j=j, T_ij=T_ij,
+                         weight=torch.ones(len(edges), dtype=torch.float64))
+    return T_gt, T0, graph, fixed
+
+
+def dist_phase(pipe, finished, seq, ring_ref, device, card: str) -> int:
+    """Phase 13: the distributed slice (``parallel/``) on the card.
+    ``finished`` is phase 9's map as its run left it, ``ring_ref`` phase
+    3's descriptors and compacted matches.  Returns the Hamming launches
+    of the ring, summed over its ranks."""
+    from photometric_bundle_adjustment_tpu_torch import interop
+    from photometric_bundle_adjustment_tpu_torch.core import se3
+    from photometric_bundle_adjustment_tpu_torch.features import pair_matching
+    from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
+    from photometric_bundle_adjustment_tpu_torch.models import pose_graph as pg
+    from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+    from photometric_bundle_adjustment_tpu_torch.optim.lm import LMConfig
+    from photometric_bundle_adjustment_tpu_torch.parallel import (
+        dist_fused,
+        dist_pgo,
+        mesh,
+    )
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import SEED
+    from photometric_bundle_adjustment_tpu_torch.scripts import sfm_run
+
+    D = DIST_RANKS
+    # phase 10 refined the map in place: measure it as phase 9 left it
+    interop.set_map_state(pipe, finished)
+    before = sfm_run.measure(pipe, seq)
+    print(f"phase 13: the distributed slice, {D} ranks sharing "
+          f"{torch.cuda.get_device_name(0)} under Gloo, then one rank under "
+          f"NCCL (ranks that share one card give no scaling measurement)")
+    dist_photometric(pipe, finished, seq, device, before)
+
+    # (b) the real V1 map, perturbed as phase 7 (b)
+    problems, _, model = real_map_problems(device)
+    pert = perturb_map(problems[torch.float64], SEED_MAP)
+    p32 = problems[torch.float32]._replace(
+        cam_states=pert[0].to(device, torch.float32),
+        inv_depth=pert[1].to(device, torch.float32))
+    cfg = ba.BAConfig(max_iterations=DIST_GEO_ITERATIONS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, rs = geometric_ba.make_fused_solver(model)(
+        p32, fused.plan_for_problem(p32), cfg)
+    torch.cuda.synchronize()
+    geo_single_s = time.perf_counter() - t0
+    geo = dist_fused.prepare(p32, D)
+    fam = dist_fused.Family("geometric", model)
+    # (c) the pose graph of phase 9's cameras
+    T_gt, T0, graph, fixed = pose_graph_of(finished, SEED)
+    pgo_cfg = LMConfig(max_iterations=50, function_tolerance=1e-16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T_ref, r_pgo = pg.pose_graph_optimization(
+        T0.to(device), pg.PoseGraph(*(x.to(device) for x in graph)),
+        fixed.to(device))
+    torch.cuda.synchronize()
+    pgo_single_s = time.perf_counter() - t0
+    # (d) the ring on phase 3's descriptors
+    rr = ring_ref
+    calls = [
+        (mesh.selftest, (), {}),
+        (dist_fused.solve_rank, (geo, fam, cfg), {}),
+        (dist_fused.solve_rank, (geo, fam, cfg),
+         dict(camera_partition=True, n_cg=DIST_PCG_CG)),
+        (dist_pgo.solve_rank, (dist_pgo.prepare(graph, D), T0.numpy(),
+                               fixed.numpy(), pgo_cfg), {}),
+        (pair_matching.ring_rank, (rr["desc"], rr["valid"],
+                                   rr["max_matches"], rr["threshold"],
+                                   rr["ratio"]), {}),
+    ]
+    reset_counts()
+    t0 = time.perf_counter()
+    st, rep, pcg, pgo, ring = mesh.spawn(mesh.run_calls, D, calls,
+                                         device=device)
+    wall = time.perf_counter() - t0
+    print(f"  (b, c, d) one group of {D} ranks: wall {wall:.3f} s; "
+          f"collectives against their definitions: {st['checks']} "
+          f"(backend {st['backend']}, {st['device']})")
+    check(len(st["checks"]) == 9, "a collective failed its self-test")
+
+    K, L = p32.cam_states.shape[0], p32.inv_depth.shape[0]
+    print(f"  (b) the real V1 map ({K} cameras, {L} landmarks, "
+          f"{int((p32.obs.valid != 0).sum())} observations, perturbed), "
+          f"{DIST_GEO_ITERATIONS} iterations, f32: valid observations per "
+          f"rank {rep['valid_obs']}")
+    init = float(rs.initial_cost)
+    for label, out in (("replicated", rep), ("camera-partitioned PCG", pcg)):
+        builds = max(out["builds"], 1)
+        per_build = ", ".join(
+            f"{k} {v / builds:g} x {out['bytes'][k] / v:,.0f} B"
+            for k, v in sorted(out["calls"].items()) if k.startswith("build."))
+        print(f"      {label}: {out['seconds']:.3f} s, {out['iterations']} "
+              f"iterations, {out['builds']} builds, {out['tries']} tries, "
+              f"{out['cg_iterations']} CG iterations; per build {per_build}; "
+              f"cost {out['initial_cost']:.6e} -> {out['cost']:.6e}; ranks "
+              f"bit-equal {out['ranks_bit_equal']}")
+        check(out["ranks_bit_equal"], f"(b) {label}: ranks not bit-equal")
+    dcam = float(np.abs(rep["cam_states"] - ps.cam_states.cpu().numpy()).max())
+    print(f"      single-device fused solve: {geo_single_s:.3f} s, cost "
+          f"{init:.6e} -> {float(rs.cost):.6e}; replicated against it: "
+          f"initial {abs(rep['initial_cost'] - init) / init:.3e}, final "
+          f"{abs(rep['cost'] - float(rs.cost)) / float(rs.cost):.3e}, "
+          f"cameras {dcam:.3e}")
+    check(abs(rep["initial_cost"] - init) < 1e-6 * init + 1e-9,
+          "(b) initial cost differs from the single-device solve")
+    check(abs(rep["cost"] - float(rs.cost)) <= 1e-4 * float(rs.cost) + 1e-9,
+          "(b) final cost differs from the single-device solve")
+    check(dcam < 1e-4, f"(b) cameras {dcam:.3e} from the single-device solve")
+    dpcg = float(np.abs(pcg["cam_states"] - rep["cam_states"]).max())
+    print(f"      partitioned against replicated: cost "
+          f"{abs(pcg['cost'] - rep['cost']) / rep['cost']:.3e}, cameras "
+          f"{dpcg:.3e}")
+    check(abs(pcg["cost"] - rep["cost"]) <= 1e-4 * rep["cost"] + 1e-9,
+          "(b) PCG cost differs from the replicated solve")
+    check(dpcg < 1e-3, f"(b) PCG cameras {dpcg:.3e} from the replicated")
+
+    c0, c1, iters = pgo["stats"]
+    err = torch.linalg.norm(se3.log(se3.compose(
+        se3.inverse(T_ref.cpu()), torch.as_tensor(pgo["poses"]))), dim=-1)
+    per_build = pgo["bytes"]["build.psum"] / pgo["calls"]["build.psum"]
+    print(f"  (c) pose graph of phase 9's {T0.shape[0]} cameras, "
+          f"{graph.edge_i.shape[0]} co-visible pairs, f64: {pgo['seconds']:.3f}"
+          f" s, {iters} iterations, cost {c0:.6e} -> {c1:.6e}, "
+          f"{pgo['calls']['build.psum']} builds x {per_build:,.0f} B; "
+          f"single-device pose_graph_optimization {pgo_single_s:.3f} s, "
+          f"{r_pgo.iterations} iterations, cost {float(r_pgo.cost):.6e}; "
+          f"pose error max {float(err.max()):.3e}; ranks bit-equal "
+          f"{pgo['ranks_bit_equal']}")
+    check(c1 <= float(r_pgo.cost) * (1 + 1e-6) + 1e-12,
+          "(c) the distributed cost is above the single-device cost")
+    check(float(err.max()) < 1e-5, f"(c) poses {float(err.max()):.3e} off")
+    check(pgo["ranks_bit_equal"], "(c) ranks not bit-equal")
+
+    ids = rr["ids"]
+    a, b = ids[:, 0], ids[:, 1]
+    p, v, c = rr["compact"]
+    ok = (np.array_equal(ring["pairs"][a, b], p)
+          and np.array_equal(ring["pvalid"][a, b], v)
+          and np.array_equal(ring["count"][a, b], c))
+    n = ring["pairs"].shape[0]
+    print(f"  (d) ring_match_all_pairs: {n} images, {D} ranks, "
+          f"{ring['seconds']:.3f} s on rank 0; shifts {ring['calls']} of "
+          f"{ring['bytes'].get('ring.ppermute', 0):,} B; Hamming launches "
+          f"per rank {ring['launches']}; every one of the {len(ids)} "
+          f"worklist pairs (a, b) bit-equal to phase 3's match_pairs: {ok}")
+    check(ok, "(d) the ring differs from phase 3's match_pairs")
+    check(ring["launches"] == [D] * D,
+          f"(d) Hamming launches {ring['launches']}, not {D} per rank")
+    counts = kernel_counts()
+    check(not any(counts.values()), f"phase 13's parent launched {counts}")
+    print(card)
+    return sum(ring["launches"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from photometric_bundle_adjustment_tpu_torch import interop
     from photometric_bundle_adjustment_tpu_torch.core import se3
     from photometric_bundle_adjustment_tpu_torch.models import synthetic
     from photometric_bundle_adjustment_tpu_torch.ops import _build
@@ -2373,7 +2682,7 @@ def main() -> int:
     print(f"synthetic map in {time.perf_counter() - t0:.1f} s")
     max_err, ms, plain_ms, bound_ms = kernel_phase(pipe, device)
     launches = slice_phase(pipe, device, se3)
-    front, seq_pipe, seq = front_end_phase(device, rates["b1"])
+    front, seq_pipe, seq, ring_ref = front_end_phase(device, rates["b1"])
     sampler = sampler_phase(pipe0, device, se3)
     bf16 = dense_phase(pipe5, device, se3)
     grid, window = probe_phase(device)
@@ -2381,10 +2690,13 @@ def main() -> int:
     front["launches"] += ransac_phase(seq_pipe, seq, device, se3)
     n_ham, sfm_pipe, sfm_seq = sfm_phase(device, card)
     front["launches"] += n_ham
+    finished = interop.map_state_to_numpy(sfm_pipe)
     n_mega, (err10, _, _, _) = refine_phase(sfm_pipe, sfm_seq, device, card)
     launches += n_mega
     front["launches"] += global_init_phase(sfm_seq, device, card)
     calibration_phase(device, card)
+    front["launches"] += dist_phase(sfm_pipe, finished, sfm_seq, ring_ref,
+                                    device, card)
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",

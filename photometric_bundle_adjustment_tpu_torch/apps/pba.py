@@ -13,9 +13,12 @@ again (detection is deterministic, so they carry the feature ids the
 saved observations name); without it, ``SfmPipeline.run`` builds the map
 first.  ``refine_map`` then runs ``pipeline/pba_refine.refine_photometric``
 on ``--device`` (the card by default) and the app writes the JAX
-package's pickle with the per-image affine brightness.  ``--distributed``
-(the landmark-sharded solve) is refused until the distributed solvers
-are ported.
+package's pickle with the per-image affine brightness.  ``--distributed
+D`` solves the full-resolution problem instead on D ranks of the
+landmark-sharded solver (``refine_photometric_distributed``), on the card
+by default (D > 1 ranks share one card under Gloo; NCCL where each rank
+has its own), prints its agreement with the single-device solve and
+writes the distributed solution.
 """
 
 from __future__ import annotations
@@ -64,14 +67,10 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument(
         "--distributed", type=int, default=0, metavar="D",
-        help="not available in this package yet: the landmark-sharded "
-             "solve needs the distributed solvers")
+        help="solve on D ranks of the landmark-sharded solver "
+             "(parallel/dist_fused.py) at full resolution, cross-checked "
+             "against the single-device solve")
     args = parser.parse_args(argv)
-
-    if args.distributed:
-        parser.error("--distributed is not available in the PyTorch port "
-                     "yet: refine_photometric_distributed needs "
-                     "parallel/dist_fused.py (ROADMAP Queue 1, slice F)")
 
     from photometric_bundle_adjustment_tpu_torch import device as devices
     from photometric_bundle_adjustment_tpu_torch.io import calib_io, dataset
@@ -113,9 +112,20 @@ def main(argv=None):
         print(f"Geometric SfM done in {time.time() - t0:.1f}s: "
               f"{pipe.summary()}")
 
-    refine_map(pipe, iterations=args.pba_iterations,
-               huber=args.huber_intensity, sample_bf16=args.sample_bf16,
-               device=args.device)
+    if args.distributed:
+        from photometric_bundle_adjustment_tpu_torch.pipeline import (
+            pba_refine,
+        )
+
+        _, parity = pba_refine.refine_photometric_distributed(
+            pipe, n_ranks=args.distributed,
+            max_iterations=args.pba_iterations,
+            huber_delta=args.huber_intensity, device=args.device)
+        print(f"Distributed-vs-single parity: {parity}")
+    else:
+        refine_map(pipe, iterations=args.pba_iterations,
+                   huber=args.huber_intensity, sample_bf16=args.sample_bf16,
+                   device=args.device)
     with open(args.map_out, "wb") as f:
         pickle.dump({
             "cameras": pipe.cameras,

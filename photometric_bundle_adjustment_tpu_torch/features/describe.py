@@ -116,6 +116,16 @@ def compute_descriptors(img: torch.Tensor, uv: torch.Tensor,
                        words).to(torch.int32)
 
 
+def detect_and_describe(img: torch.Tensor, num_features: int = 1500,
+                        rotate_features: bool = True):
+    """Corners, angles and descriptors of one (H, W) image: uv (F, 2),
+    valid (F,), angles (F,), desc (F, 8) int32
+    (detectKeypointsAndDescriptors, keypoints.h:215-221), through the
+    batched path."""
+    return tuple(x[0] for x in detect_and_describe_batch(
+        img[None], num_features, rotate_features))
+
+
 def detect_and_describe_batch(imgs: torch.Tensor, num_features: int = 1500,
                               rotate_features: bool = True):
     """Corners, angles and descriptors of (B, H, W) images: uv (B, F, 2)

@@ -28,6 +28,7 @@ import contextlib
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -65,6 +66,10 @@ class BAConfig(NamedTuple):
     # the megakernel's bf16 tier (ops/pba_mega.py): sample a bf16 copy of
     # the image stack, taps and arithmetic in f32
     sample_bf16: bool = False
+    # the fused builds (optim/fused.py) leave out the Schur Gram
+    # S_corr0 = Mw^T M (returned as None): the camera-partitioned solve of
+    # parallel/dist_fused applies the correction matrix-free inside CG
+    skip_schur_gram: bool = False
 
 
 class BAResult(NamedTuple):
@@ -75,6 +80,7 @@ class BAResult(NamedTuple):
     tries: int = 0              # trial points evaluated
     builds: int = 0             # normal-equation builds
     residual_passes: int = 0    # residual-only cost passes
+    cg_iterations: int = 0      # CG iterations (parallel/dist_fused's PCG)
 
 
 def _robust_weights(r2: torch.Tensor, delta: float) -> torch.Tensor:
@@ -111,9 +117,12 @@ def num_cams(problem: BAProblem) -> int:
 
 
 def problem_to(tree, device):
-    """Copy of a problem (or any tuple tree of tensors) on ``device``."""
+    """Copy of a problem (or any tuple tree of tensors or numpy arrays) as
+    tensors on ``device``."""
     if torch.is_tensor(tree):
         return tree.to(device)
+    if isinstance(tree, np.ndarray):
+        return torch.as_tensor(tree, device=device)
     if isinstance(tree, tuple):
         return type(tree)(*(problem_to(x, device) for x in tree))
     return tree

@@ -148,11 +148,12 @@ def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,
     return H_cc.permute(0, 2, 1, 3).reshape(K * C, K * C)
 
 
-def _schur_terms(M, inv0, g_p):
+def _schur_terms(M, inv0, g_p, skip_gram: bool = False):
     """S_corr0 = Mw^T M and rhs_corr0 = Mw^T g_p, Mw = diag(inv0) M, in
-    full f32 (the caller's ``full_f32``)."""
+    full f32 (the caller's ``full_f32``); S_corr0 is None with
+    ``skip_gram`` (``BAConfig.skip_schur_gram``)."""
     Mw = M * inv0[:, None]
-    return Mw.T @ M, Mw.T @ g_p
+    return (None if skip_gram else Mw.T @ M), Mw.T @ g_p
 
 
 def damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask,
@@ -178,8 +179,15 @@ def solve_lam(neq, lam: float, free_cam_mask: torch.Tensor,
     cheap per-lambda retry on fixed normal equations
     ``(H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)``, whose
     reduced system is camera-major (row k*C + c).  NaN deltas where the
-    damped system is not positive definite (``damped_camera_solve``)."""
+    damped system is not positive definite (``damped_camera_solve``).
+    Raises on normal equations built without the Schur Gram
+    (``BAConfig.skip_schur_gram``): those are solved by the camera-partitioned
+    PCG of ``parallel/dist_fused``."""
     H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0 = neq
+    if S_corr0 is None:
+        raise ValueError("normal equations built with skip_schur_gram have "
+                         "no Schur Gram S_corr0 to factor; solve them with "
+                         "the camera-partitioned PCG (parallel/dist_fused)")
     K = free_cam_mask.shape[0]
     C_ = H_cc_mat.shape[0] // K
     mask = free_cam_mask.to(g_c.dtype).repeat_interleave(C_)
@@ -274,7 +282,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         oh_a = _one_hot(plan.anchor_cam_of_lm, K, dtype)      # (L, K)
         M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
 
-        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p)
+        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p, cfg.skip_schur_gram)
         return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
 
     def build_dense(problem: ba.BAProblem, plan: DenseLmSchurPlan,
@@ -307,7 +315,7 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         M = tree_sum(torch.cat([A0s[:, :, C:2 * C].reshape(-1, C), anchor_v]),
                      plan.m_seg).reshape(L, K * C)
 
-        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p)
+        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p, cfg.skip_schur_gram)
         return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
 
     def build(problem: ba.BAProblem, plan, cfg: ba.BAConfig):

@@ -5,6 +5,8 @@ the map (poses + anchored inverse depths) as seed, build the direct
 intensity-patch problem over the images, and run the megakernel LM solver
 coarse to fine over an image pyramid, in the chunk-plan family (the map's
 tracks are heavy-tailed) and, with ``sample_bf16``, the kernel's bf16 tier.
+``refine_photometric_distributed`` solves the full-resolution problem on
+the landmark-sharded solver of ``parallel/dist_fused.py`` instead.
 """
 
 from __future__ import annotations
@@ -100,6 +102,109 @@ def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
         lm_valid=np.ones(L, bool),
     )
     return problem, images_flat, H, W, cam_list, lm_list
+
+
+def refine_photometric_distributed(pipe, n_ranks: int = 4,
+                                   max_iterations: int = 20,
+                                   huber_delta: float = 9.0,
+                                   compare_single: bool = True,
+                                   camera_partition: bool = False,
+                                   log=print, *, device="cuda", comm=None):
+    """Full-resolution photometric BA of the map in ``pipe`` on the
+    landmark-sharded solver (``parallel/dist_fused.py``): the distributed
+    analog of the reference's TBB/Ceres threads (src/sfm.cpp:1294-1319,
+    map_utils.h:381).  Real maps are heavy-tailed in observations per
+    landmark; the ragged chunk-plan layout takes the tail as it is.
+
+    The problem is built on ``device`` (``build_photometric_problem``) and
+    sharded on the host (``dist_fused.prepare``); ``n_ranks`` new
+    processes solve it (``mesh.spawn``, the backend by its rule).  A
+    caller already running in a process group passes its ``comm`` instead
+    (every rank calls with the same map).
+    ``camera_partition`` selects the partitioned PCG.  With
+    ``compare_single``, the single-device fused solve
+    (``photometric_ba.make_fused_solver``) runs on the same problem on
+    ``device`` and its agreement is returned.
+
+    Writes the distributed solution back into ``pipe`` (poses, inverse
+    depths above 1e-6, ``photometric_affine``) and sets
+    ``pipe.distributed_stats`` (ranks, backend, valid observations per
+    rank, the solve's wall seconds, collectives and their bytes by tag,
+    builds, tries, CG iterations, whether the ranks ended bit-equal).
+    Returns ``(BAResult, parity dict or None)``."""
+    from photometric_bundle_adjustment_tpu_torch.optim import fused
+    from photometric_bundle_adjustment_tpu_torch.parallel import (
+        dist_fused,
+        mesh,
+    )
+
+    device = devices.resolve(device if comm is None else comm.device)
+    t0 = time.perf_counter()
+    problem, images_flat, H, W, cam_list, lm_list = build_photometric_problem(
+        pipe, device=device)
+    model = pipe.calib.cam_types[0] if pipe.calib.cam_types else "ds"
+    cfg = ba.BAConfig(max_iterations=max_iterations, huber_delta=huber_delta,
+                      function_tolerance=1e-8)
+    D = comm.world if comm is not None else n_ranks
+    sharded = dist_fused.prepare(problem, D)
+    args = (sharded, dist_fused.Family("photometric", model,
+                                       images_flat.cpu(), H, W), cfg,
+            camera_partition)
+    if comm is not None:
+        out = dist_fused.solve_rank(comm, *args)
+    else:
+        out = mesh.spawn(dist_fused.solve_rank, D, *args, device=device,
+                         log=log)
+    backend = out["backend"]
+    wall = time.perf_counter() - t0
+    res = ba.BAResult(
+        cost=torch.tensor(out["cost"]),
+        initial_cost=torch.tensor(out["initial_cost"]),
+        iterations=out["iterations"], lam=out["lam"], tries=out["tries"],
+        builds=out["builds"], cg_iterations=out["cg_iterations"])
+    log(f"  distributed pba ({D} ranks, {backend}, "
+        f"{'partitioned PCG' if camera_partition else 'replicated'}): cost "
+        f"{out['initial_cost']:.6e} -> {out['cost']:.6e} "
+        f"({out['iterations']} it, {wall:.1f}s)")
+    pipe.distributed_stats = dict(
+        ranks=D, backend=backend, valid_obs=out["valid_obs"],
+        solve_s=out["seconds"], wall_s=wall, calls=out["calls"],
+        bytes=out["bytes"], builds=out["builds"], tries=out["tries"],
+        cg_iterations=out["cg_iterations"],
+        ranks_bit_equal=out["ranks_bit_equal"])
+
+    poses = np.asarray(out["cam_states"].pose, np.float64)
+    parity = None
+    if compare_single:
+        t1 = time.perf_counter()
+        solve = pba.make_fused_solver(model, images_flat, H, W, device=device)
+        p_s, r_s = solve(problem, fused.plan_for_problem(problem), cfg)
+        pose_d = float(np.abs(poses - p_s.cam_states.pose.double().cpu()
+                              .numpy()).max())
+        cost_rel = abs(out["cost"] - float(r_s.cost)) / max(float(r_s.cost),
+                                                            1e-9)
+        parity = {
+            "cost_dist": out["cost"], "cost_single": float(r_s.cost),
+            "cost_rel": cost_rel, "pose_maxdiff": pose_d,
+            "iters_dist": out["iterations"], "iters_single": r_s.iterations,
+        }
+        log(f"  single-device check: cost {float(r_s.cost):.6e} (rel diff "
+            f"{cost_rel:.2e}), pose max|d| {pose_d:.2e} "
+            f"({time.perf_counter() - t1:.1f}s)")
+
+    # landmark rows are in the padded shard-contiguous order;
+    # lm_global_index maps them home
+    rho_pad = np.asarray(out["inv_depth"], np.float64)
+    gidx = sharded.lm_global_index
+    for i, f in enumerate(cam_list):
+        pipe.cameras[f] = poses[i]
+    for i, t in enumerate(lm_list):
+        r = float(rho_pad[gidx[i]])
+        if r > 1e-6:
+            pipe.landmarks[t].inv_depth = r
+    affine = np.asarray(out["cam_states"].affine)
+    pipe.photometric_affine = {f: affine[i] for i, f in enumerate(cam_list)}
+    return res, parity
 
 
 def refine_photometric(pipe, max_iterations: int = 20,

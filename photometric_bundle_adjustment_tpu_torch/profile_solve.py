@@ -94,8 +94,6 @@ SEED = 0
 # bench.py's geometric BA workload (bench.py:38-109)
 GEO = dict(K=200, L=8192, obs_per_lm=6)
 GEO_PIXEL_NOISE = 0.3
-# the H100 SXM's published memory rate at 700 W, for reckoned bounds
-H100_BYTES_PER_S = 3.35e12
 
 
 def time_ms(fn, device: torch.device, reps: int = 20,

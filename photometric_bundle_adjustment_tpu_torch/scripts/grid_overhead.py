@@ -412,9 +412,9 @@ def run(device="cuda", seed: int = 0, log=print) -> list[dict]:
     (kernel, plain, kernel, plain: each a CUDA graph of 20 calls) beside its
     reckoned bound.  Returns one dict per variant (``share``: the bound
     over the kernel's time)."""
-    from photometric_bundle_adjustment_tpu_torch.profile_solve import (
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import graph_ms
+    from photometric_bundle_adjustment_tpu_torch.utils.roofline import (
         H100_BYTES_PER_S,
-        graph_ms,
     )
 
     device = devices.resolve(device)

@@ -15,8 +15,12 @@ megakernel's plain version), and the outputs are compared at
 tests/test_torch_slice.py::test_refine_photometric_matches_jax's
 tolerances: initial costs per level rtol 2e-4, the final cost rtol 5e-3,
 poses atol 1e-4, affine atol 1e-3, inverse depths rtol 1e-3.
-``--distributed`` is refused."""
+``--distributed 2`` refines the map on two spawned ranks (Gloo) and
+prints its agreement with the single-device solve: cost within 1e-3
+relative, poses within 1e-3."""
 
+import ast
+import datetime
 import pickle
 import re
 
@@ -28,6 +32,7 @@ from test_torch_sfm import APP_FRAMES, _write_euroc_dir, sequence
 from photometric_bundle_adjustment_tpu.apps import pba as japp
 from photometric_bundle_adjustment_tpu_torch.apps import pba as app
 from photometric_bundle_adjustment_tpu_torch.apps import sfm as sfm_app
+from photometric_bundle_adjustment_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
 
@@ -125,11 +130,39 @@ def test_pba_app_matches_jax(tmp_path, mapped, map_in, monkeypatch, capsys):
 
 
 def test_pba_app_refuses_distributed(tmp_path, capsys):
-    """The landmark-sharded solve waits for the distributed solvers: the
-    app says so and exits with an error instead of ignoring the flag."""
+    """``--distributed`` is no longer refused (the distributed solvers are
+    ported): the flag parses and the app goes on to its input checks,
+    here a missing calibration."""
     with pytest.raises(SystemExit) as e:
         app.main(["--dataset-path", str(tmp_path), "--distributed", "4",
-                  "--device", "cpu"])
+                  "--device", "cpu", "--cam-calib",
+                  str(tmp_path / "missing.json")])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--distributed" in err and "slice F" in err
+    err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert err.endswith(f"error: could not load camera calibration "
+                        f"{tmp_path / 'missing.json'}")
+
+
+def test_pba_app_distributed(tmp_path, mapped, capsys, monkeypatch):
+    monkeypatch.setattr(mesh, "DEFAULT_TIMEOUT",
+                        datetime.timedelta(seconds=60))
+    monkeypatch.setattr(mesh, "DEFAULT_WALL_LIMIT", 600.0)
+    data, calib, cache, map_path = mapped
+    out = tmp_path / "dist.pkl"
+    assert app.main(["--dataset-path", str(data), "--cam-calib", str(calib),
+                     "--pba-iterations", ITERATIONS, "--device", "cpu",
+                     "--map-in", str(map_path), "--cache-dir", str(cache),
+                     "--distributed", "2", "--map-out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "backend gloo" in text and "distributed pba (2 ranks" in text
+    line = [s for s in text.splitlines()
+            if s.startswith("Distributed-vs-single parity: ")]
+    parity = ast.literal_eval(line[0].split(": ", 1)[1])
+    assert parity["cost_rel"] <= 1e-3 and parity["pose_maxdiff"] <= 1e-3
+    assert parity["cost_dist"] < parity["cost_single"] * (1 + 1e-3)
+    got, geo = load(out), load(map_path)
+    assert sorted(got["cameras"]) == sorted(geo["cameras"])
+    assert sorted(got["affine"]) == sorted(geo["cameras"])
+    moved = max(np.abs(got["cameras"][k] - geo["cameras"][k]).max()
+                for k in geo["cameras"])
+    assert 0 < moved < 0.1

@@ -22,6 +22,14 @@ Slice E on the card against the CPU: ``apps/pba.refine_map`` of a map the
 port's SfM built (the refinement's tolerances), ``calibrate`` in f64
 (within 1e-9 relative) and ``global_initialize`` (within 1e-6).
 
+Slice F on the card: D = 2 spawned ranks sharing ``cuda:0`` under Gloo
+(every collective against its definition; ``dist_fused`` replicated and
+camera-partitioned against the single-device fused solve at
+tests/test_dist_fused.py's bounds, the ranks bit-equal;
+``ring_match_all_pairs`` bit-equal to ``match_pairs``, the Hamming kernel
+launched twice per rank) and one rank under NCCL (the collectives, and
+``dist_fused`` against the single-device solve).
+
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
 
@@ -36,12 +44,13 @@ import torch
 
 from photometric_bundle_adjustment_tpu_torch import interop
 from photometric_bundle_adjustment_tpu_torch.core import se3
-from photometric_bundle_adjustment_tpu_torch.features import pair_matching, ransac
+from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching, ransac
 from photometric_bundle_adjustment_tpu_torch.models import geometric_ba, synthetic
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import geo_mega, hamming, pba_mega
 from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
 from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+from photometric_bundle_adjustment_tpu_torch.parallel import dist_fused, mesh
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 from photometric_bundle_adjustment_tpu_torch.pipeline.sfm_pipeline import (
     SfmPipeline,
@@ -967,3 +976,74 @@ def test_global_initialize_on_card_matches_cpu(cuda):
         [d["inv_depth"] for d in got["landmarks"].values()],
         [d["inv_depth"] for d in want["landmarks"].values()],
         rtol=0, atol=1e-6)
+
+
+def _dist_case():
+    """The geometric synth_ba_problem(K=12, L=96) in f32, its port
+    single-device fused solve on the card, and the config."""
+    problem, _, _ = synthetic.synth_ba_problem(
+        "pinhole", K=12, L=96, obs_per_landmark=4, pixel_noise=0.5,
+        dtype=torch.float32, device="cpu")
+    cfg = ba.BAConfig(max_iterations=8, huber_delta=1.0)
+    p = ba.problem_to(problem, "cuda")
+    ps, rs = geometric_ba.make_fused_solver("pinhole")(
+        p, fused.plan_for_problem(p), cfg)
+    return problem, cfg, ps.cam_states.cpu().numpy(), rs
+
+
+def _hold_to_single(out, cams, rs, cam_tol=1e-4):
+    init = float(rs.initial_cost)
+    assert abs(out["initial_cost"] - init) < 1e-6 * init + 1e-9
+    assert abs(out["cost"] - float(rs.cost)) <= 1e-4 * float(rs.cost) + 1e-9
+    assert np.abs(out["cam_states"] - cams).max() < cam_tol
+    assert out["ranks_bit_equal"]
+
+
+def test_dist_fused_two_ranks_share_the_card(cuda):
+    problem, cfg, cams, rs = _dist_case()
+    sh = dist_fused.prepare(problem, 2)
+    fam = dist_fused.Family("geometric", "pinhole")
+    st, rep, pcg = mesh.spawn(
+        mesh.run_calls, 2,
+        [(mesh.selftest, (), {}), (dist_fused.solve_rank, (sh, fam, cfg), {}),
+         (dist_fused.solve_rank, (sh, fam, cfg),
+          dict(camera_partition=True, n_cg=600))],
+        device=cuda, wall_limit=600.0)
+    assert st["backend"] == "gloo" and st["device"] == "cuda:0"
+    assert len(st["checks"]) == 9
+    _hold_to_single(rep, cams, rs)
+    assert abs(pcg["cost"] - rep["cost"]) <= 1e-4 * rep["cost"] + 1e-9
+    assert np.abs(pcg["cam_states"] - rep["cam_states"]).max() < 1e-3
+    assert pcg["ranks_bit_equal"] and pcg["cg_iterations"] > 0
+
+
+def test_dist_fused_one_rank_nccl(cuda):
+    problem, cfg, cams, rs = _dist_case()
+    st, out = mesh.spawn(
+        mesh.run_calls, 1,
+        [(mesh.selftest, (), {}),
+         (dist_fused.solve_rank, (dist_fused.prepare(problem, 1),
+                                  dist_fused.Family("geometric", "pinhole"),
+                                  cfg), {})],
+        device=cuda, wall_limit=600.0)
+    assert st["backend"] == "nccl" and len(st["checks"]) == 8
+    _hold_to_single(out, cams, rs)
+
+
+def test_ring_two_ranks_share_the_card(cuda):
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 2**32, (96, 8), dtype=np.uint32)
+    desc = np.stack([base ^ rng.integers(0, 2, (96, 8)).astype(np.uint32)
+                     for _ in range(6)])
+    d = interop.descriptors_from_numpy(desc, "cpu")
+    v = torch.ones((6, 96), dtype=torch.bool)
+    out = mesh.spawn(pair_matching.ring_rank, 2, d, v, 48, 70, 1.2,
+                     device=cuda, wall_limit=600.0)
+    a, b = np.meshgrid(np.arange(6), np.arange(6), indexing="ij")
+    table = pair_matching.match_pairs(d.to(cuda), v.to(cuda), a.ravel(),
+                                      b.ravel())
+    p, pv, c = (x.cpu().numpy() for x in match.matches_to_pairs(table, 48))
+    np.testing.assert_array_equal(out["pairs"].reshape(36, 48, 2), p)
+    np.testing.assert_array_equal(out["pvalid"].reshape(36, 48), pv)
+    np.testing.assert_array_equal(out["count"].reshape(36), c)
+    assert out["launches"] == [2, 2]

@@ -83,6 +83,10 @@ def test_port_imports_and_solves_without_jax():
                                                        port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        for name in ("parallel.mesh", "parallel.dist_fused",
+                     "parallel.dist_pgo", "apps.build_voc",
+                     "utils.visualize", "utils.roofline"):
+            assert port.__name__ + "." + name in names, name
         from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
         from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
@@ -230,7 +234,9 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
     from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
 
-    from photometric_bundle_adjustment_tpu_torch.apps import calibrate
+    from photometric_bundle_adjustment_tpu_torch.apps import build_voc, calibrate
+    from photometric_bundle_adjustment_tpu_torch.features import pair_matching
+    from photometric_bundle_adjustment_tpu_torch.parallel import mesh
     from photometric_bundle_adjustment_tpu_torch.apps import pba as pba_app
     from photometric_bundle_adjustment_tpu_torch.models import calibration
 
@@ -294,6 +300,17 @@ def _entry_point_calls():
             calibration.aprilgrid_corners_3d()),
         "sfm_run_global_init": lambda: sfm_run.main(
             ["--frames", "1", "--quiet", "--global-init"]),
+        "refine_photometric_distributed": lambda:
+            pba_refine.refine_photometric_distributed(pipe, n_ranks=2,
+                                                      log=lambda s: None),
+        "mesh_spawn": lambda: mesh.spawn(mesh.selftest, 2,
+                                         log=lambda s: None),
+        "ring_match_all_pairs": lambda: pair_matching.ring_match_all_pairs(
+            torch.zeros((4, 8, 8), dtype=torch.int32),
+            torch.ones((4, 8), dtype=torch.bool), 2, max_matches=8),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(
+            2, log=lambda s: None),
+        "build_voc": lambda: build_voc.main(["--dataset-path", "missing"]),
     }
 
 
@@ -307,7 +324,9 @@ def _entry_point_calls():
     "geometric_problem_from_numpy", "make_geo_solver",
     "make_geo_solver_dense", "photometric_make_solver", "entry", "from_map",
     "sfm_run", "refine_map", "apps_pba", "apps_calibrate",
-    "calibration_build_data", "sfm_run_global_init"])
+    "calibration_build_data", "sfm_run_global_init",
+    "refine_photometric_distributed", "mesh_spawn", "ring_match_all_pairs",
+    "dryrun_multichip", "build_voc"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
