@@ -165,12 +165,33 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      phase 9's cameras against ``pose_graph_optimization``, and (d)
      ``ring_match_all_pairs`` on phase 3's descriptors, bit-equal to phase
      3's ``match_pairs`` result, the Hamming kernel launched once per ring
-     step on every rank.
+     step on every rank;
+ 14. the scale path (``scripts/scale_stress.py``'s sizes: 200, 512 and
+     1,024 cameras, up to 98,304 landmarks and 983,040 observations),
+     its seconds printed: (a) each size in f32 through three paths of
+     ``SCALE_ITERS`` LM iterations: ``geometric_ba.bundle_adjustment`` on
+     the card, and ``scale_stress.run_one`` on one NCCL rank, replicated
+     and camera-partitioned (observations, plan and solve seconds, LM and
+     CG iterations, peak MiB beside ``mem_model``'s; the initial costs
+     within ``SCALE_INIT_REL`` of each other, the cost falls, the ranks
+     bit-equal); (b) the same three paths in f64 at the medium size, the
+     final costs within ``SCALE_F64_REL`` of each other; (c) the JAX
+     script's mesh, ``SCALE_GLOO_RANKS`` Gloo ranks sharing the card, at
+     the small size in both modes, the CG total beside the JAX script's
+     CPU figure ``SCALE_CG_REF``, the final cost within ``SCALE_GLOO_REL``
+     of (a)'s one-rank run; (d) ``refine_photometric`` (3 levels, 20
+     iterations, Huber 9) on ``synth_pba_pipe(**SCALE_MAP)``, 960 images
+     of 480x752: the host render and set-up seconds, per level the cost
+     (it falls at every level), LM it/s and tries, the wall, peak MiB and
+     #1's launches (one per build, no other kernel); after the run #1's
+     first level-0 build, its inputs recorded during the run, is held
+     against its plain version as in phase 10.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
-probe and the window read; the megakernel's launches are phases 2 and 10,
-its error the larger of phases 1 and 10, its times phase 1's; the Hamming
+probe and the window read; the megakernel's launches are phases 2, 10
+and 14, its error the largest of phases 1, 10 and 14, its times phase
+1's; the Hamming
 kernel's launches are phases 3, 8, 9, 11 and 13's ranks), the card line
 again, and as
 the last line
@@ -211,9 +232,14 @@ LEVELS, MAX_ITERATIONS, HUBER = 3, 20, 9.0
 # version does not: about one ulp per operation.  The residual
 # r = (I_t - b_t) - e (I_ref - b_r) cancels operands of image scale, so its
 # error is a few ulps of the largest intensity, not of r; the cost
-# 0.5 rho(|r|^2) then moves by sum_p |w r_p| times that.  Each observation's
-# cost is held at COST_RTOL relative plus COST_FMA_ULPS ulps of the image
-# scale times sum_p |r_p sw| (>= sum_p |w r_p|, as sw <= 1).
+# 0.5 rho(|r|^2) then moves by sum_p |w r_p| times that, plus the second
+# order 0.5 sum_p d_p^2 of a move d_p (0.5 |r_k^2 - r^2| = |d| |r + d / 2|),
+# which is all there is where the plain version's residual is exactly 0:
+# a patch on a plateau of one uint8 value, sampled bilinearly, gives r = 0
+# in the plain version and an ulp of the intensity through the kernel's
+# FMAs.  Each observation's cost is held at COST_RTOL relative plus
+# sum_p (|r_p sw| d_p + 0.5 d_p^2), d_p COST_FMA_ULPS ulps of the image
+# scale (|r_p sw| >= |w r_p|, as sw <= 1).
 COST_RTOL = 1e-5
 COST_FMA_ULPS = 8
 ROWS_ATOL = 1e-4        # times max|ref| of each row block
@@ -336,6 +362,21 @@ CALIB_SEED = 0
 DIST_RANKS, DIST_COST_REL = 4, 1e-3
 DIST_GEO_ITERATIONS, DIST_PCG_CG = 8, 600
 PGO_EDGE_NOISE, PGO_POSE_NOISE = 0.02, 0.1
+# phase 14: the scale path.  (a) each size of scale_stress.SIZES in f32,
+# SCALE_ITERS LM iterations (Huber 1) through bundle_adjustment and
+# run_one at D = 1 in both modes: the three initial costs within
+# SCALE_INIT_REL relative (one f32 problem summed in three orders), the
+# cost falls on every path.  (b) the medium size in f64: the three final
+# costs within SCALE_F64_REL (f32 spreads them by 1e-2 on the CPU and 1e-1
+# on the card after two steps of an ill-conditioned 3,072-unknown system;
+# f64 holds them to 1e-9).  (c) SCALE_GLOO_RANKS Gloo ranks at the small
+# size: the final cost within SCALE_GLOO_REL of (a)'s one-rank run of the
+# same mode, the CG total printed beside SCALE_CG_REF (RESULTS.md:419, and
+# the port's and the JAX script's CPU runs).  (d) the 960-image map.
+SCALE_ITERS, SCALE_INIT_REL, SCALE_F64_REL = 2, 1e-5, 1e-7
+SCALE_GLOO_RANKS, SCALE_GLOO_REL, SCALE_CG_REF = 8, 5e-4, 213
+SCALE_MAP = dict(K=960, L=28_800, H=480, W=752, obs_per_lm=5,
+                 long_tracks=1170)
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -515,14 +556,19 @@ def compare_payloads(out, ref, images, label: str, warp,
                   f"{label}: rows {name} {k64:.4e} from the f64 plain "
                   f"version, the f32 plain version {p64:.4e}")
             blocks[-1] += f", f64: kernel {k64:.2e}, plain {p64:.2e}"
-    # per-observation cost: rtol plus the FMA bound of the residual
+    # per-observation cost: rtol plus the FMA bound of the residual, to
+    # first and second order
     cost_err = (cost_k - cost_r).abs()
+    d = COST_FMA_ULPS * ulp_img + dr
     bound = COST_RTOL * cost_r.abs() \
-        + (ref[136:144].abs() * (COST_FMA_ULPS * ulp_img + dr)).sum(dim=0)
-    worst = float((cost_err / bound.clamp_min(1e-30))[smooth].max())
+        + (ref[136:144].abs() * d + 0.5 * d * d).sum(dim=0)
+    ratio = torch.where(smooth, cost_err / bound.clamp_min(1e-30),
+                        torch.zeros_like(cost_err))
+    worst, at = (float(v) for v in ratio.max(dim=0))
     check(worst <= 1.0, f"{label}: cost row beyond rtol {COST_RTOL} + "
           f"{COST_FMA_ULPS} ulps of the image scale + the warp's bound "
-          f"({worst:.3f} of it)")
+          f"({worst:.3f} of it at column {int(at)}: kernel "
+          f"{float(cost_k[int(at)]):.9e}, plain {float(cost_r[int(at)]):.9e})")
     check(total_rel <= COST_RTOL, f"{label}: total cost rel err {total_rel}")
     max_err = max(max_err, float(cost_err[smooth].max()))
     print(f"  {label}: {int(ok.sum())} of {N} columns finite, "
@@ -2643,6 +2689,215 @@ def dist_phase(pipe, finished, seq, ring_ref, device, card: str) -> int:
     return sum(ring["launches"])
 
 
+def scale_geometric(name, dtype, device) -> dict:
+    """Phase 14 (a, b): one size of ``scale_stress.SIZES`` in ``dtype``
+    through the single-device solve and ``run_one`` on one rank in both
+    modes; returns {path: (initial cost, final cost)}."""
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        geometric_ba,
+        synthetic,
+    )
+    from photometric_bundle_adjustment_tpu_torch.optim import ba
+    from photometric_bundle_adjustment_tpu_torch.scripts import scale_stress
+
+    K, L, opl = scale_stress.SIZES[name]
+    prec = "f32" if dtype == torch.float32 else "f64"
+    problem, _, _ = synthetic.synth_ba_problem(
+        "pinhole", K, L, opl, pixel_noise=0.5, dtype=dtype, device=device)
+    O = problem.obs.anchor_cam.shape[0]
+    mm = scale_stress.mem_model(K, L, O, 1)
+    print(f"  {name}, {prec}: K {K}, L {L}, O {O}, {K * 6} camera unknowns; "
+          f"mem_model at D = 1: build {mm['build_MB']:.0f} MB, M "
+          f"{mm['M_MB']:.0f} MB, reduced (replicated) "
+          f"{mm['replicated_MB']:.0f} MB, (partitioned) "
+          f"{mm['partitioned_MB']:.0f} MB")
+    # the single-device path: the plan alone timed, then bundle_adjustment
+    # (which makes the same plan again)
+    t0 = time.perf_counter()
+    _, plan = geometric_ba._accel_plan(problem)
+    plan_s = time.perf_counter() - t0
+    family = type(plan).__name__
+    del plan
+    cfg = ba.BAConfig(max_iterations=SCALE_ITERS, huber_delta=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    p, res = geometric_ba.bundle_adjustment(problem, "pinhole", cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    c0, c1 = float(res.initial_cost), float(res.cost)
+    print(f"    single device ({family}): plan {plan_s:.3f} s, plan + solve "
+          f"{secs:.3f} s, {res.iterations} iterations, {res.tries} tries, "
+          f"cost {c0:.9e} -> {c1:.9e}, peak {peak:.1f} MiB")
+    check(math.isfinite(c1) and c1 < c0,
+          f"(a) {name} {prec} single device: the cost did not fall")
+    check(bool(torch.isfinite(p.cam_states).all()
+               and torch.isfinite(p.inv_depth).all()),
+          f"(a) {name} {prec} single device: non-finite state")
+    costs = {"single": (c0, c1)}
+    del p, problem
+    # the rank is another process: hand it the blocks this one has cached
+    torch.cuda.empty_cache()
+    for mode in ("replicated", "partitioned"):
+        t0 = time.perf_counter()
+        r = scale_stress.run_one(K, L, opl, mode, SCALE_ITERS, ranks=1,
+                                 device=device, dtype=dtype)
+        wall = time.perf_counter() - t0
+        print(f"    run_one {mode}, 1 rank ({r.backend}): plan "
+              f"{r.prep_s:.3f} s, solve {r.solve_s:.3f} s (wall {wall:.3f} s "
+              f"with the rank's start), {r.cg} CG iterations, cost "
+              f"{r.initial_cost:.9e} -> {r.cost:.9e}, peak "
+              f"{r.peak_bytes / 2**20:.1f} MiB; ranks bit-equal "
+              f"{r.ranks_bit_equal}")
+        check(r.O == O, f"(a) {name} {mode}: {r.O} observations, not {O}")
+        check(r.backend == "nccl", f"(a) {name} {mode}: backend {r.backend}")
+        check(r.ok, f"(a) {name} {prec} {mode}: the cost did not fall")
+        check(r.ranks_bit_equal, f"(a) {name} {mode}: ranks not bit-equal")
+        check((r.cg > 0) == (mode == "partitioned"),
+              f"(a) {name} {mode}: {r.cg} CG iterations")
+        costs[mode] = (r.initial_cost, r.cost)
+    init = [c[0] for c in costs.values()]
+    spread = (max(init) - min(init)) / min(init)
+    print(f"    initial costs within {spread:.3e} relative (bound "
+          f"{SCALE_INIT_REL})")
+    check(spread <= SCALE_INIT_REL, f"(a) {name} {prec}: initial costs "
+          f"{init} spread {spread:.3e}")
+    return costs
+
+
+def scale_photometric(device) -> tuple[int, float]:
+    """Phase 14 (d): ``refine_photometric`` on the 960-image map; returns
+    #1's launches in the run and its max |err| against the plain version
+    on the run's first level-0 build."""
+    from photometric_bundle_adjustment_tpu_torch.models import synthetic
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.profile_solve import SEED
+
+    t0 = time.perf_counter()
+    pipe = synthetic.synth_pba_pipe(seed=SEED, **SCALE_MAP)
+    render_s = time.perf_counter() - t0
+    n_obs = sum(len(lm.obs) - 1 for lm in pipe.landmarks.values())
+    H, W = SCALE_MAP["H"], SCALE_MAP["W"]
+    args = ", ".join(f"{k}={v}" for k, v in SCALE_MAP.items())
+    print(f"  (d) synth_pba_pipe({args}, seed={SEED}) rendered on the host "
+          f"in {render_s:.3f} s: "
+          f"{len(pipe.cameras)} images, {len(pipe.landmarks)} landmarks, "
+          f"{n_obs} patch observations, {8 * len(pipe.cameras)} camera "
+          f"unknowns; refine_photometric, {LEVELS} levels x "
+          f"{MAX_ITERATIONS} iterations, Huber {HUBER}, f32")
+    # the inputs of #1's first full-resolution launch, recorded as the run
+    # makes it; the call itself goes through unchanged
+    first = []
+    kernel = pba_mega.mega_fused
+
+    def recording(model, images, *rest):
+        if not first and tuple(images.shape[1:]) == (H, W):
+            first.append((model, images) + rest)
+        return kernel(model, images, *rest)
+
+    # the main path, counts from 0
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pba_mega.mega_fused = recording
+    try:
+        t0 = time.perf_counter()
+        res = pba_refine.refine_photometric(
+            pipe, levels=LEVELS, max_iterations=MAX_ITERATIONS,
+            huber_delta=HUBER, log=lambda s: None, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pba_mega.mega_fused = kernel
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    levels_s = 0.0
+    for lv in pipe.photometric_levels:
+        levels_s += lv["setup_s"] + lv["solve_s"]
+        print(f"      level {lv['level']} ({lv['W']}x{lv['H']}): set-up "
+              f"{lv['setup_s']:.3f} s, solve {lv['solve_s']:.3f} s, "
+              f"{lv['iterations']} iterations "
+              f"({lv['iterations'] / lv['solve_s']:.2f} LM it/s), "
+              f"{lv['tries']} tries ({lv['tries'] / lv['solve_s']:.2f}/s), "
+              f"cost {lv['initial_cost']:.6e} -> {lv['cost']:.6e}")
+        check(math.isfinite(lv["cost"]) and lv["cost"] < lv["initial_cost"],
+              f"(d) the cost did not fall at level {lv['level']}")
+    print(f"      wall {wall:.3f} s (the problem and the pyramid "
+          f"{wall - levels_s:.3f} s); peak {peak:.1f} MiB; kernel launches "
+          f"{counts}")
+    check(math.isfinite(float(res.cost)), "(d) final cost is not finite")
+    expected = sum(lv["tries"] + 1 for lv in pipe.photometric_levels)
+    check(counts["pba_mega"] == expected,
+          f"(d) #1 launched {counts['pba_mega']} times, builds {expected}")
+    others = {k: v for k, v in counts.items() if k != "pba_mega" and v}
+    check(not others, f"(d) the refinement launched other kernels: {others}")
+    check(len(first) == 1, "(d) no full-resolution build was recorded")
+    model, images, cams, rho, c, huber = first.pop()
+    check(huber == HUBER, f"(d) the build ran at Huber {huber}")
+    print(f"      #1 against its plain version on the first level-0 build: "
+          f"{int((c.timg >= 0).sum())} observations in {c.cols.shape[1]} "
+          f"columns")
+    err = mega_against_plain(model, images, cams, rho, c, "the 960-image map",
+                             device)[0]
+    return counts["pba_mega"], err
+
+
+def scale_phase(device, card: str) -> tuple[int, float]:
+    """Phase 14: the scale path.  Returns #1's launches in (d) and its max
+    |err| against the plain version there."""
+    from photometric_bundle_adjustment_tpu_torch.scripts import scale_stress
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    torch.cuda.empty_cache()
+    print(f"phase 14: the scale path, scripts/scale_stress.py's sizes on "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"  (a) f32, {SCALE_ITERS} LM iterations, Huber 1, three paths")
+    one_rank = {name: scale_geometric(name, torch.float32, device)
+                for name in scale_stress.SIZES}
+    print("  (b) f64 at the medium size")
+    f64 = scale_geometric("medium", torch.float64, device)
+    final = [c[1] for c in f64.values()]
+    spread = (max(final) - min(final)) / min(final)
+    print(f"    final costs {final}: within {spread:.3e} relative (bound "
+          f"{SCALE_F64_REL})")
+    check(spread <= SCALE_F64_REL, f"(b) f64 final costs spread {spread:.3e}")
+
+    K, L, opl = scale_stress.SIZES["small"]
+    D = SCALE_GLOO_RANKS
+    print(f"  (c) the JAX script's mesh: {D} ranks sharing the card, small")
+    for mode in ("replicated", "partitioned"):
+        t0 = time.perf_counter()
+        r = scale_stress.run_one(K, L, opl, mode, SCALE_ITERS, ranks=D,
+                                 device=device)
+        wall = time.perf_counter() - t0
+        ref = one_rank["small"][mode][1]
+        rel = abs(r.cost - ref) / ref
+        print(f"    {mode}, {D} ranks ({r.backend}): plan {r.prep_s:.3f} s, "
+              f"solve {r.solve_s:.3f} s (wall {wall:.3f} s), cost "
+              f"{r.initial_cost:.9e} -> {r.cost:.9e}, {rel:.3e} from one "
+              f"rank (bound {SCALE_GLOO_REL}); CG iterations {r.cg} "
+              f"(RESULTS.md:419 and both packages' CPU runs: "
+              f"{SCALE_CG_REF}); rank 0's peak "
+              f"{r.peak_bytes / 2**20:.1f} MiB; ranks bit-equal "
+              f"{r.ranks_bit_equal}")
+        check(r.backend == "gloo", f"(c) {mode}: backend {r.backend}")
+        check(r.ok, f"(c) {mode}: the cost did not fall")
+        check(r.ranks_bit_equal, f"(c) {mode}: ranks not bit-equal")
+        check(rel <= SCALE_GLOO_REL, f"(c) {mode}: {rel:.3e} from one rank")
+        check((r.cg > 0) == (mode == "partitioned"),
+              f"(c) {mode}: {r.cg} CG iterations")
+    counts = kernel_counts()
+    check(not any(counts.values()), f"(a-c) launched a kernel: {counts}")
+
+    launches, err = scale_photometric(device)
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    print(card)
+    return launches, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2697,6 +2952,8 @@ def main() -> int:
     calibration_phase(device, card)
     front["launches"] += dist_phase(sfm_pipe, finished, sfm_seq, ring_ref,
                                     device, card)
+    n_scale, err14 = scale_phase(device, card)
+    launches += n_scale
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",
@@ -2704,7 +2961,7 @@ def main() -> int:
         "source": "photometric_bundle_adjustment_tpu_torch/csrc/pba_mega.cu",
         "replaces": "photometric_bundle_adjustment_tpu/ops/pba_mega.py:456",
         "launches": launches,
-        "max_abs_err": max(max_err, err10),
+        "max_abs_err": max(max_err, err10, err14),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

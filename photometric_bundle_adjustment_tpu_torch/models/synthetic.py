@@ -421,6 +421,24 @@ def _stereo_rig(n_frames: int, W: int, model: str):
     return intr, poses, T_i_c.numpy(), center
 
 
+def _sweep_reach(K: int) -> float:
+    """The largest distance (m) of a camera of ``_stereo_rig(K // 2, ...)``
+    from the room's centre."""
+    _, poses, _, center = _stereo_rig(K // 2, 752, "ds")
+    return float(torch.linalg.norm(se3.translation(poses) - center,
+                                   dim=-1).max())
+
+
+def max_room_images() -> int:
+    """The largest even image count K whose stereo sweep keeps every
+    camera strictly inside the room sphere of ``synth_pba_pipe``; past it
+    the end cameras leave the sphere and their rays miss it."""
+    K = 4
+    while _sweep_reach(K + 2) < _ROOM_RADIUS:
+        K += 2
+    return K
+
+
 def synth_pba_pipe(K: int = 12, L: int = 48, H: int = 64, W: int = 96,
                    obs_per_lm: int = 3, long_tracks: int = 0, seed: int = 0,
                    model: str = "ds", trans_noise: float = 0.02,
@@ -443,6 +461,13 @@ def synth_pba_pipe(K: int = 12, L: int = 48, H: int = 64, W: int = 96,
         raise ValueError(f"K={K} must be even and >= 4 (stereo pairs)")
     rng = np.random.default_rng(seed)
     f64 = torch.float64
+    far = _sweep_reach(K)
+    if far >= _ROOM_RADIUS:
+        raise ValueError(
+            f"K={K}: a camera of the sweep lies {far:.3f} m from the room's "
+            f"centre, outside its sphere of radius {_ROOM_RADIUS} m, where "
+            f"the rendered images would not be finite; the largest K that "
+            f"fits is {max_room_images()}")
     intr, poses, T_i_c, center = _stereo_rig(K // 2, W, model)
     s = W / 752.0
     intr_t = torch.as_tensor(intr, dtype=f64)

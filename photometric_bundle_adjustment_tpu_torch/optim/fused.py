@@ -107,13 +107,32 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
     return problem._replace(obs=obs2), plan_to(plan, dev)
 
 
+# the bytes of one level's gathered chunk values, (chunks, B, D), above
+# which ``tree_sum`` gathers and sums them a block of chunks at a time: a
+# level pads every chunk to B rows, so wide rows of few values each (the
+# camera lift of a 1,024-camera problem: 98,304 chunks of 2 rows of 6,144)
+# would gather 38.7 GB at once
+TREE_SUM_BLOCK_BYTES = 1 << 30
+
+
+def _level_sums(values: torch.Tensor, multi: torch.Tensor) -> torch.Tensor:
+    """``values[multi].sum(dim=1)``, in blocks of chunks whose gathered
+    values stay within ``TREE_SUM_BLOCK_BYTES``."""
+    per_chunk = multi.shape[1] * values.shape[1] * values.element_size()
+    n = max(1, TREE_SUM_BLOCK_BYTES // per_chunk)
+    if multi.shape[0] <= n:
+        return values[multi].sum(dim=1)
+    return torch.cat([values[multi[i:i + n]].sum(dim=1)
+                      for i in range(0, multi.shape[0], n)])
+
+
 def tree_sum(values: torch.Tensor, tree: SegmentTree) -> torch.Tensor:
     """values (N, D) summed into the output rows of ``tree`` (R, D) in the
     tree's fixed order: gathers and sums over a chunk axis, no
     scatter-add, so the result repeats bit for bit on the card."""
     values = torch.cat([values, values.new_zeros((1, values.shape[1]))])
     for single, multi in tree.levels:
-        values = torch.cat([values[single], values[multi].sum(dim=1)])
+        values = torch.cat([values[single], _level_sums(values, multi)])
     return values[tree.pick]
 
 
@@ -129,8 +148,9 @@ def _chunk_sum(payload: torch.Tensor, plan: ChunkPlan, n_rows: int):
 
 
 def _one_hot(idx, K: int, dtype):
-    """one_hot with index K (the plans' dummy) mapping to a zero row."""
-    return torch.nn.functional.one_hot(idx, K + 1)[..., :K].to(dtype)
+    """one_hot with index K (the plans' dummy) mapping to a zero row, made
+    by a comparison (no int64 one-hot of K + 1 columns on the way)."""
+    return (idx[..., None] == torch.arange(K, device=idx.device)).to(dtype)
 
 
 def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,

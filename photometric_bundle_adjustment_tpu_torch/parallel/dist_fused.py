@@ -427,7 +427,9 @@ def solve_rank(comm, sharded: ShardedFusedProblem, family: Family,
     depths of every shard gathered into the padded (D * L_s,) layout, the
     BAResult's fields, whether every rank ended with bit-equal camera
     states, the collectives by tag and their bytes, every shard's valid
-    observations, this rank's seconds and the backend."""
+    observations, this rank's seconds, its peak device bytes over the
+    solve (``torch.cuda.max_memory_allocated``, the counter reset just
+    before it; 0 on the CPU) and the backend."""
     import time
 
     residual_fn, rj_fn, retract, C = family_fns(family, comm.device)
@@ -436,13 +438,16 @@ def solve_rank(comm, sharded: ShardedFusedProblem, family: Family,
         residual_fn, retract, C, comm, rj_fn=rj_fn,
         camera_partition=camera_partition, n_cg=n_cg, cg_tol=cg_tol)
     comm.reset_counts()
-    if comm.device.type == "cuda":
+    cuda = comm.device.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(comm.device)
+        torch.cuda.reset_peak_memory_stats(comm.device)
     t0 = time.perf_counter()
     out, res = solve(problem, plan, cfg)
-    if comm.device.type == "cuda":
+    if cuda:
         torch.cuda.synchronize(comm.device)
     seconds = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated(comm.device) if cuda else 0
     calls, nbytes = dict(comm.calls), dict(comm.bytes)
     return dict(
         cam_states=interop.problem_to_numpy(out.cam_states),
@@ -451,7 +456,7 @@ def solve_rank(comm, sharded: ShardedFusedProblem, family: Family,
         iterations=res.iterations, lam=res.lam, tries=res.tries,
         builds=res.builds, cg_iterations=res.cg_iterations,
         ranks_bit_equal=ranks_bit_equal(comm, out.cam_states),
-        calls=calls, bytes=nbytes, seconds=seconds,
+        calls=calls, bytes=nbytes, seconds=seconds, peak_bytes=peak_bytes,
         valid_obs=sharded.valid_obs(), backend=comm.backend)
 
 

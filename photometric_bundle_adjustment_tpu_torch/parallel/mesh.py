@@ -222,9 +222,11 @@ def make_host_chip_mesh(hosts: int, chips_per_host: int,
 
 
 def _rank_main(rank, fn, world, init_method, backend, device, timeout,
-               result_path, threads, args):
+               result_path, threads, args_path):
     if threads:
         torch.set_num_threads(threads)
+    with open(args_path, "rb") as f:
+        args = pickle.load(f)
     comm = init(rank, world, backend=backend, init_method=init_method,
                 device=device, timeout=timeout)
     try:
@@ -248,8 +250,12 @@ def spawn(fn, n_ranks: int, *args, device="cuda", backend: str | None = None,
     The ranks meet at a ``file://`` store in a fresh temporary directory
     (no TCP port, so concurrent groups cannot collide).  ``fn`` must be
     importable by name (a module-level function of the port) and its
-    result picklable.  A failing rank fails the call with that rank's
-    traceback (the others are terminated); a group still running after
+    result picklable.  ``args`` are pickled once into that directory and
+    each rank loads them there: handed to the processes at their start,
+    they would make each process's start wait for the one before it to
+    import torch (the parent's write to a process blocks until it reads).
+    A failing rank fails the call with that rank's traceback (the others
+    are terminated); a group still running after
     ``wall_limit`` seconds is killed and ``TimeoutError`` raised.
     ``timeout`` (each collective's) and ``wall_limit`` default to
     ``DEFAULT_TIMEOUT`` and ``DEFAULT_WALL_LIMIT``.
@@ -269,10 +275,14 @@ def spawn(fn, n_ranks: int, *args, device="cuda", backend: str | None = None,
         f"({reason})")
     with tempfile.TemporaryDirectory(prefix="pba_mesh_") as tmp:
         result_path = os.path.join(tmp, "result.pkl")
+        args_path = os.path.join(tmp, "args.pkl")
+        with open(args_path, "wb") as f:
+            pickle.dump(args, f, protocol=pickle.HIGHEST_PROTOCOL)
         ctx = mp.start_processes(
             _rank_main,
             args=(fn, n_ranks, "file://" + os.path.join(tmp, "store"),
-                  backend, str(device), timeout, result_path, threads, args),
+                  backend, str(device), timeout, result_path, threads,
+                  args_path),
             nprocs=n_ranks, join=False, start_method="spawn")
         deadline = time.monotonic() + wall_limit
         try:

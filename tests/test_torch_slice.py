@@ -85,7 +85,8 @@ def test_port_imports_and_solves_without_jax():
             importlib.import_module(name)
         for name in ("parallel.mesh", "parallel.dist_fused",
                      "parallel.dist_pgo", "apps.build_voc",
-                     "utils.visualize", "utils.roofline"):
+                     "utils.visualize", "utils.roofline",
+                     "scripts.scale_stress"):
             assert port.__name__ + "." + name in names, name
         from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
@@ -225,6 +226,7 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.scripts import (
         exp_roll,
         grid_overhead,
+        scale_stress,
         sfm_run,
     )
 
@@ -311,6 +313,10 @@ def _entry_point_calls():
         "dryrun_multichip": lambda: entry.dryrun_multichip(
             2, log=lambda s: None),
         "build_voc": lambda: build_voc.main(["--dataset-path", "missing"]),
+        "scale_stress_run_one": lambda: scale_stress.run_one(
+            24, 384, 4, "replicated"),
+        "scale_stress_main": lambda: scale_stress.main(
+            ["--sizes", "small", "--iters", "1"]),
     }
 
 
@@ -326,7 +332,8 @@ def _entry_point_calls():
     "sfm_run", "refine_map", "apps_pba", "apps_calibrate",
     "calibration_build_data", "sfm_run_global_init",
     "refine_photometric_distributed", "mesh_spawn", "ring_match_all_pairs",
-    "dryrun_multichip", "build_voc"])
+    "dryrun_multichip", "build_voc", "scale_stress_run_one",
+    "scale_stress_main"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
