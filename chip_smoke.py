@@ -186,14 +186,25 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      #1's launches (one per build, no other kernel); after the run #1's
      first level-0 build, its inputs recorded during the run, is held
      against its plain version as in phase 10.
+ 15. (run right after phase 7) the port's benchmark: ``bench.main`` in
+     this process on the card at full size, the CPU baselines off
+     (minutes of host work that measure the host): every line it prints
+     strict JSON without ``error``, the metrics ``BENCH_LINES`` in the
+     JAX main's order with the headline last, every value finite and
+     positive; #1 (both tiers) and #3
+     launched exactly as often as the bench called them (each line's
+     ``kernel`` record: launches equal to calls, and the counters' rise
+     their sum); the bench's ``ba_lm_iters_per_s_cuda`` from a CUDA graph
+     within ``BENCH_GEO_GRAPH_REL`` of phase 7 (a)'s (the same step on
+     the same inputs), the host-launched ratio printed beside it.
 
 Then it prints one JSON line describing the six kernels (the megakernel's
 f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
-probe and the window read; the megakernel's launches are phases 2, 10
-and 14, its error the largest of phases 1, 10 and 14, its times phase
+probe and the window read; the megakernel's launches are phases 2, 10,
+14 and 15, its error the largest of phases 1, 10 and 14, its times phase
 1's; the Hamming
-kernel's launches are phases 3, 8, 9, 11 and 13's ranks), the card line
-again, and as
+kernel's launches are phases 3, 8, 9, 11, 13's ranks and 15), the card
+line again, and as
 the last line
 ``{"ok": true, "device": {...}}``.  The bounds of the megakernel and the
 sampler charge their output on observation columns only.
@@ -223,8 +234,10 @@ import torch
 # the H100 SXM's published peaks at 700 W
 from photometric_bundle_adjustment_tpu_torch.utils.roofline import (
     H100_BYTES_PER_S,
-    H100_F32_OPS_PER_S,
-    H100_INT8_OPS_PER_S,
+    hamming_bound_ms,
+    mega_bound_ms,
+    mma_rates,
+    sample_bound_ms,
 )
 
 LEVELS, MAX_ITERATIONS, HUBER = 3, 20, 9.0
@@ -255,14 +268,6 @@ ROWS_ATOL = 1e-4        # times max|ref| of each row block
 # version's own distance plus ROWS_ATOL times its max |ref|.
 WARP_ULPS = 16
 F64_FACTOR = 2.0
-
-# megakernel f32 operations per observation, counted from
-# csrc/pba_mega.cu: about 150 for the two rotations, M and u; per patch
-# pixel about 12 for q, up to 60 for the projection and its Jacobian
-# (kb4), 58 for the 26 coefficients, 26 for J = gx GA + gy GB, 40 for the
-# bilinear value and gradient and 10 for the residual (8 pixels: about
-# 1,650), plus about 550 for the payloads A0 and A1; rounded up
-MEGA_OPS_PER_OBS = 4096
 
 # the patch sampler against its plain version: a few ulps of the image
 # scale (FMA contraction), as the megakernel's rows
@@ -377,6 +382,15 @@ SCALE_ITERS, SCALE_INIT_REL, SCALE_F64_REL = 2, 1e-5, 1e-7
 SCALE_GLOO_RANKS, SCALE_GLOO_REL, SCALE_CG_REF = 8, 5e-4, 213
 SCALE_MAP = dict(K=960, L=28_800, H=480, W=752, obs_per_lm=5,
                  long_tracks=1170)
+# phase 15: the port's bench.py, its lines in the JAX main's order (no
+# stats record: no wall estimate); its geometric step is phase 7 (a)'s
+BENCH_LINES = ["match_pairs_per_s_cuda", "pba_lm_iters_per_s_cuda",
+               "pba_lm_iters_per_s_cuda_bf16", "keyframes_per_s_cuda",
+               "ba_lm_iters_per_s_cuda"]
+# the same step's device rate (from a CUDA graph) in both: held to 5%;
+# the host-launched rates, which move 1.6x to 1.9x between runs, are
+# printed beside it
+BENCH_GEO_GRAPH_REL = 0.05
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -583,43 +597,6 @@ def compare_payloads(out, ref, images, label: str, warp,
     return max_err
 
 
-def mega_bound_ms(model, images, cams, rho, consts) -> float:
-    """Least time of one megakernel build on these inputs, counted from the
-    fused entry's own inputs: the bytes it must move (each observation
-    column's static columns (index 16 B, bearings 96 B, intrinsics 32 B,
-    reference patch 32 B) read once, the state (poses, affine, inverse
-    depths) read once, each image pixel its taps touch read once at the
-    stack's 4 or 2 bytes, and the (184,) f32 payload of each observation
-    written once; zero columns are not charged) over the card's memory
-    rate.  Its f32 operations (MEGA_OPS_PER_OBS each) take far less, so it
-    is bytes-bound."""
-    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
-
-    K, H, W = images.shape
-    ok = consts.timg >= 0
-    n_obs = int(ok.sum())
-    ux, uy, _, _, _ = pba_mega.warp_slabs(model, cams, rho, consts)
-    img = consts.timg[ok]
-    x0 = torch.floor(ux[:, ok].clamp(0, W - 1.001)).long()
-    y0 = torch.floor(uy[:, ok].clamp(0, H - 1.001)).long()
-    taps = torch.cat([((img * H + y0 + dy) * W + x0 + dx).reshape(-1)
-                      for dy in (0, 1) for dx in (0, 1)])
-    n_pix = int(torch.unique(taps).numel())
-    texel = images.element_size()
-    col_bytes = 4 * (4 + 3 * pba_mega.P + 8 + pba_mega.P)
-    state = 4 * (cams.pose.numel() + cams.affine.numel() + rho.numel())
-    out_bytes = 4 * pba_mega.OUT_ROWS * n_obs
-    nbytes = col_bytes * n_obs + state + texel * n_pix + out_bytes
-    ops = MEGA_OPS_PER_OBS * n_obs
-    check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
-          "megakernel bound is not bytes")
-    print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
-          f"{col_bytes} B of columns, state {state / 1e6:.3f} MB, {n_pix} "
-          f"image pixels x {texel} B, output {out_bytes / 1e6:.2f} MB) at "
-          f"3.35 TB/s")
-    return 1e3 * nbytes / H100_BYTES_PER_S
-
-
 def pushed_state(problem, device):
     """The problem's state with observations made off-image and
     non-finite through the state, as the megakernel now takes no pixel
@@ -681,7 +658,7 @@ def mega_against_plain(model, images, cams, rho, c, label: str, device):
           f"calls, plain/kernel/kernel/plain); through the wrapper "
           f"{wrapper_ms:.4f} ms per call (20 calls between CUDA events: the "
           f"host's launch rate)")
-    bound_ms = mega_bound_ms(model, images, cams, rho, c)
+    bound_ms = mega_bound_ms(model, images, cams, rho, c, log=print)
     print(f"  bound {bound_ms:.4f} ms: the kernel at "
           f"{bound_ms / ms:.1%} of it")
     return max_err, ms, plain_ms, bound_ms
@@ -779,35 +756,6 @@ def slice_phase(pipe, device, se3):
     check(launches == expected,
           f"kernel launches {launches} != builds {expected}")
     return launches
-
-
-def sample_bound_ms(images, ux, uy, img) -> float:
-    """Least time of one sampler call on these inputs: the bytes it must
-    move (ux, uy and the image index of each observation column, each
-    image pixel its taps touch read once, 3 x 8 f32 per observation
-    written once; zero columns are not charged) over the card's memory
-    rate.  Its f32 operations (about 20 per point) take far less, so it is
-    bytes-bound."""
-    from photometric_bundle_adjustment_tpu_torch.ops import patch_sample as ps
-
-    K, H, W = images.shape
-    ok = img >= 0
-    n_obs = int(ok.sum())
-    im = img[ok].long()
-    x0 = torch.floor(ux[:, ok].clamp(0, W - 1.001)).long()
-    y0 = torch.floor(uy[:, ok].clamp(0, H - 1.001)).long()
-    taps = torch.cat([((im * H + y0 + dy) * W + x0 + dx).reshape(-1)
-                      for dy in (0, 1) for dx in (0, 1)])
-    n_pix = int(torch.unique(taps).numel())
-    out_bytes = 4 * 3 * ps.P * n_obs
-    nbytes = 4 * (2 * ps.P * n_obs + n_obs + n_pix) + out_bytes
-    ops = 20 * ps.P * n_obs
-    check(ops / H100_F32_OPS_PER_S < nbytes / H100_BYTES_PER_S,
-          "sampler bound is not bytes")
-    print(f"  bound: {nbytes / 1e6:.2f} MB ({n_obs} observations x "
-          f"{8 * ps.P + 4} B, {n_pix} image pixels, output "
-          f"{out_bytes / 1e6:.2f} MB) at 3.35 TB/s")
-    return 1e3 * nbytes / H100_BYTES_PER_S
 
 
 def grid_sample_values(images, ux, uy, img):
@@ -951,7 +899,7 @@ def sampler_phase(pipe, device, se3):
           f"value alone, no gradient (within {lib_err:.2e} of the kernel's "
           f"value); through the wrapper {wrapper_ms:.4f} ms per call (20 "
           f"calls between CUDA events: the host's launch rate)")
-    bound_ms = sample_bound_ms(images, ux, uy, img)
+    bound_ms = sample_bound_ms(images, ux, uy, img, log=print)
     print(f"  bound {bound_ms:.4f} ms: the kernel at {bound_ms / ms:.1%} "
           f"of it")
     del out, ref, args
@@ -1075,7 +1023,7 @@ def dense_phase(pipe, device, se3):
           f"kernel on the same inputs {ms32:.4f} ms per build on the device "
           f"(CUDA graphs of 20 calls)")
     bound_ms = mega_bound_ms("pinhole", bf, prob_d.cam_states,
-                             prob_d.inv_depth, consts)
+                             prob_d.inv_depth, consts, log=print)
     print(f"  bound {bound_ms:.4f} ms: the bf16 kernel at "
           f"{bound_ms / ms:.1%} of it")
 
@@ -1309,45 +1257,6 @@ def mega_resources():
           f"{n} megakernel instances read, expected {2 * len(pba_mega.MODELS)}")
 
 
-def mma_rates(device) -> dict:
-    """The card's sustained mma.sync rate, in operations per second, of
-    the b1 AND+POPC form (the Hamming kernel's product) and the s8 form:
-    ``csrc/mma_rate.cu`` at 4 blocks of 8 warps per SM, the best of 3
-    launches of each timed with CUDA events after one warm-up."""
-    import ctypes
-
-    from photometric_bundle_adjustment_tpu_torch.ops import _build
-
-    fn = _build.load("mma_rate").mma_rate
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    sink = torch.empty(blocks * 256, dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ops = ctypes.c_longlong()
-    rates = {}
-    for form, (code, iters) in {"b1": (0, 2048), "s8": (1, 8192)}.items():
-        def run():
-            err = fn(code, blocks, iters, sink.data_ptr(), ctypes.byref(ops),
-                     stream)
-            check(err == 0, f"mma_rate {form} failed to launch ({err})")
-        run()
-        times = []
-        for _ in range(3):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize(device)
-            times.append(start.elapsed_time(end))
-        rates[form] = ops.value / (min(times) / 1e3)
-        print(f"  mma.sync {form}: {rates[form] / 1e12:.1f} TOP/s sustained "
-              f"({ops.value:.3e} operations in {min(times):.4f} ms, best of "
-              f"3; the data sheet's dense int8 peak, for wgmma, is 1,979)")
-    return rates
-
-
 def int_mm_best_two(desc, valid):
     """The Hamming best-two of every ordered image pair through the int8
     tensor cores, as one PyTorch library call per image: descriptors as
@@ -1373,28 +1282,6 @@ def int_mm_best_two(desc, valid):
         for o, r in zip(out, hamming.best_two_from(dist.reshape(F, I, F), 2)):
             o[i] = r
     return out
-
-
-def hamming_bound_ms(valid, a, b, F, b1_rate) -> tuple[float, str]:
-    """Least time of the all-pairs best-two (both directions) on these
-    inputs: the larger of the bytes (descriptor stack, masks and pair
-    indices read once, three (P, F) int32 outputs per direction written
-    once) over the memory rate, and the operations of one 256-term product
-    per pair between its valid descriptors (2 x 256 per distance; one
-    product serves both directions) over the faster of the two routes:
-    int8 bit planes at the data sheet's peak, or b1 words at ``b1_rate``,
-    the sustained rate phase 0 measured."""
-    n = valid.sum(1).double()
-    P = a.numel()
-    ops = float((n[a] * n[b]).sum()) * 256 * 2
-    nbytes = valid.numel() * (32 + 1) + 2 * 2 * 4 * P + 2 * 3 * 4 * P * F
-    t_int8, t_b1 = ops / H100_INT8_OPS_PER_S, ops / b1_rate
-    t_ops, t_bytes = min(t_int8, t_b1), nbytes / H100_BYTES_PER_S
-    print(f"  bound: {ops:.3e} operations ({1e3 * t_int8:.4f} ms as int8 at "
-          f"1,979 TOP/s, {1e3 * t_b1:.4f} ms as b1 at the measured "
-          f"{b1_rate / 1e12:.1f}), {nbytes / 1e6:.1f} MB ({1e3 * t_bytes:.4f} "
-          f"ms at 3.35 TB/s)")
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
 def front_end_phase(device, b1_rate):
@@ -1546,7 +1433,8 @@ def front_end_phase(device, b1_rate):
           f"{ms:.4f} ms ({P / ms * 1e3:.0f} pairs/s), plain {plain_ms:.4f} "
           f"ms, _int_mm form {library_ms:.4f} ms over all {n_img}^2 ordered "
           f"pairs (CUDA events; plain/kernel/library/kernel/plain)")
-    bound_ms, bound_by = hamming_bound_ms(valid, a, b, F, b1_rate)
+    bound_ms, bound_by = hamming_bound_ms(valid, a, b, F, b1_rate,
+                                          log=print)
     print(f"  bound {bound_ms:.4f} ms ({bound_by}): the kernel at "
           f"{bound_ms / ms:.1%} of it")
     ring_ref = dict(desc=desc.cpu(), valid=valid.cpu(), ids=ids,
@@ -1944,7 +1832,7 @@ def geo_bench_phase(device, card: str, se3):
           f"CUDA graph of 20 steps")
     print(f"  geo_lm_iters_per_s {1e3 / ms:.2f} (host-launched; "
           f"{1e3 / ms_graph:.2f} from the graph) on {card}")
-    return 1e3 / ms
+    return 1e3 / ms, 1e3 / ms_graph
 
 
 def reference_trajectory(path) -> dict:
@@ -2133,8 +2021,9 @@ def entry_points_phase(device):
     check(mse < 10 * eps, "lm_solve did not converge")
 
 
-def geo_phase(device, card: str, se3) -> float:
-    """Phase 7: geometric BA.  Returns ``geo_lm_iters_per_s``."""
+def geo_phase(device, card: str, se3) -> tuple[float, float]:
+    """Phase 7: geometric BA.  Returns ``geo_lm_iters_per_s``,
+    host-launched and from a CUDA graph."""
     reset_counts()
     rate = geo_bench_phase(device, card, se3)
     real_map_phase(device)
@@ -2898,6 +2787,68 @@ def scale_phase(device, card: str) -> tuple[int, float]:
     return launches, err
 
 
+def bench_phase(device, card: str, geo_rate: tuple[float, float]) -> dict:
+    """Phase 15: ``bench.main`` at full size without the CPU baselines.
+    ``geo_rate`` is phase 7 (a)'s ``geo_lm_iters_per_s``, host-launched
+    and from a CUDA graph.  Returns the kernels' launches in the phase."""
+    import contextlib
+    import io
+
+    from photometric_bundle_adjustment_tpu_torch import bench
+
+    def not_strict(name):
+        raise ValueError(f"bench printed {name}, not strict JSON")
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: bench.main on {card}, full size, CPU baselines off")
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(device, cpu_baselines=False)
+    counts = kernel_counts()
+    text = out.getvalue()
+    print(text, end="")
+    lines = [json.loads(x, parse_constant=not_strict)
+             for x in text.splitlines()]
+    errors = [x for x in lines if "error" in x]
+    check(rc == 0 and not errors, f"bench failed (rc {rc}): {errors}")
+    names = [x["metric"] for x in lines]
+    check(names == BENCH_LINES, f"bench printed {names}, not {BENCH_LINES}")
+    for x in lines:
+        check(math.isfinite(x["value"]) and x["value"] > 0,
+              f"bench {x['metric']} value {x['value']}")
+    by = {x["metric"]: x for x in lines}
+    expected = {"pba_mega": 0, "pba_mega_bf16": 0, "hamming": 0,
+                "patch_sample": 0, "grid_overhead": 0, "exp_roll": 0}
+    for metric, counter in (("pba_lm_iters_per_s_cuda", "pba_mega"),
+                            ("pba_lm_iters_per_s_cuda_bf16", "pba_mega_bf16"),
+                            ("match_pairs_per_s_cuda", "hamming")):
+        k = by[metric]["kernel"]
+        print(f"  {metric}: {k['name']} {k['ms']:.4f} ms on the device at "
+              f"the step's inputs, {k['share']:.1%} of its "
+              f"{k['bound_ms']:.4f} ms bound ({k['bound_by']}); "
+              f"{k['launches']} launches for {k['calls']} calls")
+        check(k["launches"] == k["calls"] > 0,
+              f"{metric}: {k['launches']} launches for {k['calls']} calls")
+        expected[counter] = k["calls"]
+    print(f"  kernel launches in phase 15: {counts}")
+    check(counts == expected, f"phase 15 launched {counts}, the bench "
+                              f"called {expected}")
+    geo = by["ba_lm_iters_per_s_cuda"]
+    host, graph = geo_rate
+    ratio = geo["graph_iters_per_s"] / graph
+    print(f"  ba_lm_iters_per_s_cuda {geo['value']:.2f} host-launched, "
+          f"{geo['graph_iters_per_s']:.2f} from a CUDA graph, against phase "
+          f"7 (a)'s geo_lm_iters_per_s {host:.2f} and {graph:.2f} (ratios "
+          f"{geo['value'] / host:.3f} host-launched, {ratio:.4f} from the "
+          f"graph)")
+    check(abs(ratio - 1) <= BENCH_GEO_GRAPH_REL,
+          f"bench's geometric graph rate {geo['graph_iters_per_s']:.2f} is "
+          f"not within {BENCH_GEO_GRAPH_REL:.0%} of phase 7's {graph:.2f}")
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2928,7 +2879,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     hamming_resources()
     mega_resources()
-    rates = mma_rates(device)
+    rates = mma_rates(device, log=print)
 
     t0 = time.perf_counter()
     pipe = synthetic.synth_pba_pipe(seed=SEED, **EUROC)
@@ -2941,7 +2892,12 @@ def main() -> int:
     sampler = sampler_phase(pipe0, device, se3)
     bf16 = dense_phase(pipe5, device, se3)
     grid, window = probe_phase(device)
-    geo_phase(device, card, se3)
+    geo_rate = geo_phase(device, card, se3)
+    # phase 15 next to phase 7, whose rates it is compared with
+    n_bench = bench_phase(device, card, geo_rate)
+    launches += n_bench["pba_mega"]
+    bf16["launches"] += n_bench["pba_mega_bf16"]
+    front["launches"] += n_bench["hamming"]
     front["launches"] += ransac_phase(seq_pipe, seq, device, se3)
     n_ham, sfm_pipe, sfm_seq = sfm_phase(device, card)
     front["launches"] += n_ham

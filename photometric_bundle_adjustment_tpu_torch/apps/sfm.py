@@ -7,11 +7,13 @@
 Port of ``photometric_bundle_adjustment_tpu/apps/sfm.py``: runs the staged
 pipeline to completion (next_step loop, sfm.cpp:472-478) on ``--device``
 (the card by default), prints the reference's progress counters, writes
-the run's stats record (``--stats-out``: wall time, per-stage wall and
-device-block seconds, the pipeline's counters) and saves the map as the
-JAX package's pickle or, for a ``.cereal`` path, the reference's binary
-archive.  ``--global-init`` replaces the incremental bootstrap by
-rotation and translation averaging over the match graph
+the run's stats record (``--stats-out``, by default
+``runs/last_run_stats_torch.json``: wall time, per-stage wall and
+device-block seconds, the pipeline's counters, the device and its
+``backend``, "cuda" or "cpu"; the port's ``bench.py`` reads it) and saves
+the map as the JAX package's pickle or, for a ``.cereal`` path, the
+reference's binary archive.  ``--global-init`` replaces the incremental
+bootstrap by rotation and translation averaging over the match graph
 (``pipeline/global_init``, through ``run_global_init``).
 """
 
@@ -22,6 +24,11 @@ import json
 import os
 import pickle
 import time
+
+# the port's own record (bench.py's --stats default): the JAX package's
+# apps.sfm writes runs/last_run_stats.json, the committed record of its
+# TPU run, which this app must not overwrite
+STATS_OUT = "runs/last_run_stats_torch.json"
 
 
 def run_global_init(pipe) -> None:
@@ -54,7 +61,7 @@ def main(argv=None):
     parser.add_argument("--cache-dir", default=None)
     parser.add_argument("--map-out", default="map.pkl")
     parser.add_argument(
-        "--stats-out", default="runs/last_run_stats.json",
+        "--stats-out", default=STATS_OUT,
         help="write a JSON record of wall time, per-stage timings and the "
              "pipeline's counters ('' disables)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -126,6 +133,7 @@ def main(argv=None):
             "device_s": round(pipe.device_seconds, 3),
             "host_s": round(wall - pipe.device_seconds, 3),
             "device": str(pipe.device),
+            "backend": pipe.device.type,
             "timings_s": {k: round(v, 3)
                           for k, v in sorted(pipe.timings.items())},
             "timings_dev_s": {k: round(v, 3)

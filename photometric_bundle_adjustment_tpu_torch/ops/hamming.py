@@ -166,7 +166,10 @@ def smem_bytes(N1: int, N2: int, both: bool = True) -> int:
     return int(_lib().hamming_smem_bytes(N1, N2, int(both)))
 
 
-def _check_kernel_inputs(desc1, valid1, desc2, valid2, a, b):
+def check_kernel_inputs(desc1, valid1, desc2, valid2, a, b):
+    """Raise ValueError unless the kernel can take these inputs: dtypes,
+    shapes, one device, contiguity, alignment, pair indices in range (one
+    host sync, for the range)."""
     dev = desc1.device
     checks = [("desc1", desc1, 3, torch.int32), ("desc2", desc2, 3, torch.int32),
               ("valid2", valid2, 2, torch.bool)]
@@ -198,7 +201,6 @@ def _check_kernel_inputs(desc1, valid1, desc2, valid2, a, b):
 def _launch(desc1, valid1, desc2, valid2, a, b):
     """One kernel launch over the worklist on the current stream: the
     forward outputs, and the backward ones too when ``valid1`` is given."""
-    global KERNEL_LAUNCHES
     dev = desc1.device
     if dev.type != "cuda":
         raise ValueError(f"hamming kernel: unsupported device {dev}")
@@ -209,7 +211,20 @@ def _launch(desc1, valid1, desc2, valid2, a, b):
     outs = [torch.empty((P, n), dtype=torch.int32, device=dev) for n in widths]
     if P == 0:
         return tuple(outs)
-    _check_kernel_inputs(desc1, valid1, desc2, valid2, a, b)
+    check_kernel_inputs(desc1, valid1, desc2, valid2, a, b)
+    enqueue(desc1, valid1, desc2, valid2, a, b, outs)
+    return tuple(outs)
+
+
+def enqueue(desc1, valid1, desc2, valid2, a, b, outs):
+    """The kernel's launch on the current stream into the preallocated
+    ``outs`` ((P, N1) x 3, then (P, N2) x 3 when ``valid1`` is given,
+    int32), for inputs that passed ``check_kernel_inputs`` (``a`` and
+    ``b`` contiguous int32 on the device): no host sync, so a caller that
+    checks once can capture launches in a CUDA graph."""
+    global KERNEL_LAUNCHES
+    dev = desc1.device
+    P, N1, N2 = a.shape[0], desc1.shape[1], desc2.shape[1]
     lib = _lib()
     ptrs = (ctypes.c_void_p * 6)(*[o.data_ptr() for o in outs])
     err = lib.hamming_best_two(
@@ -225,7 +240,6 @@ def _launch(desc1, valid1, desc2, valid2, a, b):
                 f"in shared memory, past the kernel's limit")
         raise RuntimeError(f"hamming_best_two launch failed: {msg}")
     KERNEL_LAUNCHES += 1
-    return tuple(outs)
 
 
 def best_two_nn(desc1, desc2, valid2, a, b):

@@ -30,6 +30,10 @@ tests/test_dist_fused.py's bounds, the ranks bit-equal;
 launched twice per rank) and one rank under NCCL (the collectives, and
 ``dist_fused`` against the single-device solve).
 
+The port's ``bench.main`` on the card at toy sizes: the ``_cuda`` lines
+in the JAX main's order, strict JSON, no error, the kernels launched once
+a call.
+
 Run on a GPU host (the repository's conftest imports JAX, which GPU hosts
 need not have, hence ``--noconftest``):
 
@@ -1047,3 +1051,35 @@ def test_ring_two_ranks_share_the_card(cuda):
     np.testing.assert_array_equal(out["pvalid"].reshape(36, 48), pv)
     np.testing.assert_array_equal(out["count"].reshape(36), c)
     assert out["launches"] == [2, 2]
+
+
+def test_bench_main_on_card_at_toy_sizes(cuda, capsys):
+    import json
+    import math
+
+    from photometric_bundle_adjustment_tpu_torch import bench
+
+    def not_strict(name):
+        raise ValueError(name)
+
+    toy = {"match": dict(I=8, F=128, C=2, MM=128, hyps=8),
+           "pba": dict(K=12, L=48, obs_per_lm=3, H=64, W=96),
+           "step": dict(K=6, L=64), "final": dict(K=6, L=64),
+           "detect": dict(H=64, W=96, B=2, F=128),
+           "geometry": dict(M_loc=128, M_rows=256, hyps=8)}
+    assert bench.main(cuda, cpu_baselines=False, sizes=toy) == 0
+    lines = [json.loads(x, parse_constant=not_strict)
+             for x in capsys.readouterr().out.splitlines()]
+    assert [x["metric"] for x in lines] == [
+        "match_pairs_per_s_cuda", "pba_lm_iters_per_s_cuda",
+        "pba_lm_iters_per_s_cuda_bf16", "keyframes_per_s_cuda",
+        "ba_lm_iters_per_s_cuda"]
+    for x in lines:
+        assert "error" not in x and math.isfinite(x["value"]), x
+        assert x["device"] == torch.cuda.get_device_name(cuda)
+        assert x["peak_device_mib"] > 0, x
+    for x in lines[:3]:
+        k = x["kernel"]
+        assert k["launches"] == k["calls"] > 0 and k["bound_ms"] > 0, k
+    assert lines[-1]["graph_iters_per_s"] > 0
+    assert lines[-1]["roofline"]["bound"] in ("bytes", "operations")

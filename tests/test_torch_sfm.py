@@ -627,6 +627,27 @@ def test_sfm_app_on_cpu(tmp_path, euroc_dir, map_out):
     assert evaluation.ate_rmse(est, gt) < 5e-3
 
 
+def test_sfm_app_default_stats_record(tmp_path, euroc_dir, monkeypatch):
+    """Without ``--stats-out`` the app writes the port's own record,
+    runs/last_run_stats_torch.json under the working directory, naming
+    its backend, which the port's bench reads; it never writes
+    runs/last_run_stats.json, the JAX package's committed TPU record."""
+    from photometric_bundle_adjustment_tpu_torch import bench
+    from photometric_bundle_adjustment_tpu_torch.apps import sfm as app
+
+    data, calib, cache = euroc_dir
+    monkeypatch.chdir(tmp_path)
+    assert app.main([
+        "--dataset-path", str(data), "--cam-calib", str(calib),
+        "--map-out", "map.pkl", "--device", "cpu", "--cache-dir", str(cache),
+    ]) == 0
+    assert not (tmp_path / "runs" / "last_run_stats.json").exists()
+    stats = bench.load_port_stats(tmp_path / "runs"
+                                  / "last_run_stats_torch.json")
+    assert (stats["backend"], stats["device"]) == ("cpu", "cpu")
+    assert stats["n_images"] == 2 * APP_FRAMES
+
+
 def test_sfm_app_global_init_on_cpu(tmp_path, euroc_dir):
     """``apps/sfm.main --global-init --device cpu`` from JPEGs: tracks,
     rotation and translation averaging, triangulation, then BA and the

@@ -86,7 +86,7 @@ def test_port_imports_and_solves_without_jax():
         for name in ("parallel.mesh", "parallel.dist_fused",
                      "parallel.dist_pgo", "apps.build_voc",
                      "utils.visualize", "utils.roofline",
-                     "scripts.scale_stress"):
+                     "scripts.scale_stress", "bench"):
             assert port.__name__ + "." + name in names, name
         from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
@@ -236,6 +236,7 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.models import geometric_ba
     from photometric_bundle_adjustment_tpu_torch.ops import geo_mega
 
+    from photometric_bundle_adjustment_tpu_torch import bench
     from photometric_bundle_adjustment_tpu_torch.apps import build_voc, calibrate
     from photometric_bundle_adjustment_tpu_torch.features import pair_matching
     from photometric_bundle_adjustment_tpu_torch.parallel import mesh
@@ -317,6 +318,7 @@ def _entry_point_calls():
             24, 384, 4, "replicated"),
         "scale_stress_main": lambda: scale_stress.main(
             ["--sizes", "small", "--iters", "1"]),
+        "bench_cli": lambda: bench.cli([]),
     }
 
 
@@ -333,7 +335,7 @@ def _entry_point_calls():
     "calibration_build_data", "sfm_run_global_init",
     "refine_photometric_distributed", "mesh_spawn", "ring_match_all_pairs",
     "dryrun_multichip", "build_voc", "scale_stress_run_one",
-    "scale_stress_main"])
+    "scale_stress_main", "bench_cli"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
