@@ -197,14 +197,31 @@ JAX.  Phases, each of which raises (exit code 1) on failure:
      their sum); the bench's ``ba_lm_iters_per_s_cuda`` from a CUDA graph
      within ``BENCH_GEO_GRAPH_REL`` of phase 7 (a)'s (the same step on
      the same inputs), the host-launched ratio printed beside it.
+ 16. the value curve (``scripts/pba_value_curve.run_ladder``) on phase 9's
+     map as its run left it (restored, with no affine brightness, as
+     phase 10 started): the JAX script's rungs of 0, 2, 5, 10 and 20 cm
+     in f32 with phase 10's settings, then the 0 cm rung in bf16, each
+     row printed as a JSON line (ATE against the rendered poses after an
+     SE3 and a Sim3 alignment, stereo baselines, costs, iterations,
+     seconds, per-level costs); the cost rises at no level of any rung,
+     the 0 cm rung's final cost is phase 10's within ``VC_REPEAT_RTOL``
+     and the bf16 rung's is the f32 rung's within ``VC_BF16_RTOL``, #1
+     launches in both tiers and no other kernel.  Before it, outside the
+     counted run, #1's bf16 tier against its plain version on the map's
+     problem at each pyramid level (the chunk layout the bf16 rung builds
+     on);
+ 17. ``scripts/multiprocess_smoke.py`` as a subprocess with ``--procs 1``
+     (one NCCL rank on cuda:0) and ``--procs 2`` (two processes sharing
+     cuda:0 under Gloo, by ``mesh.host_rule``): each exits 0 and prints
+     OK on that backend and device; the wall time of each.
 
-Then it prints one JSON line describing the six kernels (the megakernel's
-f32 and bf16 tiers, the Hamming best-two, the patch sampler, the grid
-probe and the window read; the megakernel's launches are phases 2, 10,
-14 and 15, its error the largest of phases 1, 10 and 14, its times phase
-1's; the Hamming
-kernel's launches are phases 3, 8, 9, 11, 13's ranks and 15), the card
-line again, and as
+Then it prints the run's total seconds, one JSON line describing the six
+kernels (the megakernel's f32 and bf16 tiers, the Hamming best-two, the
+patch sampler, the grid probe and the window read; the megakernel's
+launches are phases 2, 10, 14, 15 and 16 (its bf16 tier's 5 (c, d), 15
+and 16), its error the largest of phases 1, 10 and 14, its times phase
+1's; the Hamming kernel's launches are phases 3, 8, 9, 11, 13's ranks
+and 15), the card line again, and as
 the last line
 ``{"ok": true, "device": {...}}``.  The bounds of the megakernel and the
 sampler charge their output on observation columns only.
@@ -224,6 +241,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -391,6 +409,22 @@ BENCH_LINES = ["match_pairs_per_s_cuda", "pba_lm_iters_per_s_cuda",
 # the host-launched rates, which move 1.6x to 1.9x between runs, are
 # printed beside it
 BENCH_GEO_GRAPH_REL = 0.05
+# phase 16: the value curve (scripts/pba_value_curve.run_ladder) on phase
+# 9's map as its run left it, the JAX script's rungs (sigma_t in m) in f32
+# with phase 10's settings, then the 0 cm rung in bf16; no rung's cost may
+# rise at any level, and the 0 cm rung repeats phase 10's refinement (the
+# same map through the same call, builds bit-repeatable) to VC_REPEAT_RTOL
+VC_RUNGS = (0.0, 0.02, 0.05, 0.10, 0.20)
+VC_REPEAT_RTOL = 1e-6
+# the bf16 0 cm rung's final cost against the f32 0 cm rung's: 1.19e-6
+# apart on the H100 (1.4330043e7 against 1.4330060e7, the same in two
+# calls, builds bit-repeatable); the bound is eight times that
+VC_BF16_RTOL = 1e-5
+# phase 17: the multi-process smoke as a subprocess at each of MP_PROCS
+# (one NCCL rank on cuda:0; two processes sharing cuda:0 under Gloo), the
+# parent's wait for its workers MP_TIMEOUT seconds
+MP_PROCS = {1: "backend nccl; device cuda:0", 2: "backend gloo; device cuda:0"}
+MP_TIMEOUT = 300
 # detection on the card against the CPU plain path, as in the tests:
 # corners identical; angles to 1e-4 rad; descriptor bits may flip only
 # where cos/sin differ by an ulp and a rotated tap lands on .5
@@ -2157,8 +2191,8 @@ def refine_phase(pipe, seq, device, card: str):
     """Phase 10: the megakernel against its plain version on the level-0
     problem of phase 9's finished map, then ``apps/pba.refine_map`` (the
     app's defaults) on that map.  Returns the megakernel's launches in
-    the refinement and (max_abs_err, ms, plain_ms, bound_ms) of the
-    comparison."""
+    the refinement, (max_abs_err, ms, plain_ms, bound_ms) of the
+    comparison and the refinement's final cost."""
     from photometric_bundle_adjustment_tpu_torch.apps import pba as pba_app
     from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
     from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
@@ -2220,7 +2254,7 @@ def refine_phase(pipe, seq, device, card: str):
     check(not others, f"the refinement launched other kernels: {others}")
     print(f"  kernel launches in phase 10: {counts}")
     print(card)
-    return counts["pba_mega"], compared
+    return counts["pba_mega"], compared, levels[-1]["cost"]
 
 
 def global_init_phase(seq, device, card: str) -> int:
@@ -2262,8 +2296,6 @@ def global_init_phase(seq, device, card: str) -> int:
 def calibration_phase(device, card: str):
     """Phase 12: ``models/calibration.calibrate`` at euroc_calib's size
     for a ds and a kb4 rig, in f64 on the card and on the CPU."""
-    import os
-
     from photometric_bundle_adjustment_tpu_torch.core import cameras
     from photometric_bundle_adjustment_tpu_torch.io import calib_io
     from photometric_bundle_adjustment_tpu_torch.models import (
@@ -2849,6 +2881,141 @@ def bench_phase(device, card: str, geo_rate: tuple[float, float]) -> dict:
     return counts
 
 
+def value_curve_phase(pipe, finished, seq, cost10: float, device,
+                      card: str) -> dict:
+    """Phase 16: ``pba_value_curve.run_ladder`` on phase 9's map as its run
+    left it (``finished``; phase 10 refined ``pipe`` in place), scored
+    against the rendered poses.  ``cost10`` is phase 10's final cost.
+    Returns the kernels' launches in the phase and the bf16 tier's
+    max_abs_err against its plain version."""
+    from photometric_bundle_adjustment_tpu_torch import interop
+    from photometric_bundle_adjustment_tpu_torch.models import (
+        photometric_ba as pba,
+    )
+    from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
+    from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+    from photometric_bundle_adjustment_tpu_torch.scripts import (
+        pba_value_curve as vc,
+    )
+
+    # everything phase 10 started from: the map, and no affine brightness
+    interop.set_map_state(pipe, finished)
+    for name in ("photometric_affine", "photometric_levels"):
+        pipe.__dict__.pop(name, None)
+    print(f"phase 16: the value curve on phase 9's map ({len(pipe.cameras)} "
+          f"cameras, {len(pipe.landmarks)} landmarks): rungs "
+          f"{[100 * r for r in VC_RUNGS]} cm in f32, then 0 cm in bf16; "
+          f"{LEVELS} levels, {MAX_ITERATIONS} iterations, Huber {HUBER}")
+    # the bf16 tier on this map's problem at each level (each level's first
+    # build of the 0 cm rung), outside the counted run.  The rendered
+    # images hold 8-bit values, which bf16 keeps exactly: only the
+    # pyramid's averaged levels round
+    problem, images_flat, H, W, _, _ = pba_refine.build_photometric_problem(
+        pipe, device=device)
+    model = pipe.calib.cam_types[0]
+    pyramid = pba.build_pyramid(images_flat.reshape(-1, H, W), LEVELS)
+    err16 = 0.0
+    for level in range(LEVELS - 1, -1, -1):
+        imgs = pyramid[level][0]
+        prob = pba_refine.level_problem(problem, pyramid, level)
+        _, rows = pba_mega.build_chunk_mega_plan(prob)
+        c = pba_mega.make_mega_consts(model, prob, rows)
+        bf = imgs.to(torch.bfloat16).contiguous()
+        rest = (prob.cam_states, prob.inv_depth, c, HUBER)
+        out = pba_mega.mega_fused(model, bf, *rest)
+        ref = pba_mega.mega_fused_reference(model, bf.float(), *rest)
+        torch.cuda.synchronize()
+        ux, uy, _, GA, GB = pba_mega.warp_slabs(model, prob.cam_states,
+                                                prob.inv_depth, c)
+        rounded = float((bf.float() != imgs).float().mean())
+        print(f"  bf16 kernel vs plain at level {level} "
+              f"({imgs.shape[2]}x{imgs.shape[1]}): model {model}, "
+              f"{int((c.timg >= 0).sum())} observations in "
+              f"{c.cols.shape[1]} columns, {rounded:.1%} of the texels "
+              f"rounded by bf16")
+        label = f"phase 9's map, bf16, level {level}"
+        err16 = max(err16, compare_payloads(out, ref, bf.float(), label,
+                                            (ux, uy, GA, GB, c)))
+        check(bool((out[:, c.timg < 0] == 0).all()),
+              f"{label}: a zero column is not zero")
+        del prob, c, bf, rest, out, ref, ux, uy, GA, GB
+    del problem, images_flat, pyramid
+    score = vc.room_score(seq)
+    # the main path, counts from 0
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = [(False, r) for r in vc.run_ladder(
+        pipe, VC_RUNGS, score, device=device, max_iterations=MAX_ITERATIONS,
+        huber_delta=HUBER, levels=LEVELS)]
+    rows += [(True, r) for r in vc.run_ladder(
+        pipe, [0.0], score, bf16=True, device=device,
+        max_iterations=MAX_ITERATIONS, huber_delta=HUBER, levels=LEVELS)]
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    for bf16, row in rows:
+        print(json.dumps({"bf16": bf16, **row}))
+        tag = f"{row['sigma_cm']:g} cm{' bf16' if bf16 else ''}"
+        for lv in row["levels"]:
+            check(math.isfinite(lv["cost"]) and lv["cost"] <= lv["initial_cost"],
+                  f"rung {tag}: the cost rose at level {lv['level']}: "
+                  f"{lv['initial_cost']:.6e} -> {lv['cost']:.6e}")
+        print(f"  rung {tag}: ATE {row['ate_init_se3_cm']:.4f} -> "
+              f"{row['ate_pba_se3_cm']:.4f} cm (SE3), "
+              f"{row['ate_init_sim3_cm']:.4f} -> {row['ate_pba_sim3_cm']:.4f}"
+              f" cm (Sim3); baseline median {row['baseline_init_m'][0]:.6f} "
+              f"-> {row['baseline_pba_m'][0]:.6f} m; cost "
+              f"{row['initial_cost']:.6e} -> {row['cost']:.6e} in "
+              f"{row['iterations']} iterations, {row['seconds']:.3f} s")
+    T = np.asarray(seq.calib.T_i_c)
+    print(f"  calibrated baseline "
+          f"{float(np.linalg.norm(T[1, :3] - T[0, :3])):.6f} m")
+    cost0 = rows[0][1]["cost"]
+    print(f"  the 0 cm rung's final cost {cost0:.9e} against phase 10's "
+          f"{cost10:.9e} (rel {abs(cost0 - cost10) / abs(cost10):.3e}, bound "
+          f"{VC_REPEAT_RTOL})")
+    check(abs(cost0 - cost10) <= VC_REPEAT_RTOL * abs(cost10),
+          f"the 0 cm rung's cost {cost0:.9e} is not phase 10's {cost10:.9e}")
+    cost16 = rows[-1][1]["cost"]
+    rel16 = abs(cost16 - cost0) / abs(cost0)
+    print(f"  the bf16 0 cm rung's final cost {cost16:.9e} against the f32 "
+          f"rung's (rel {rel16:.3e}, bound {VC_BF16_RTOL})")
+    check(rel16 <= VC_BF16_RTOL,
+          f"the bf16 0 cm rung's cost {cost16:.9e} is not within "
+          f"{VC_BF16_RTOL} of the f32 rung's {cost0:.9e}")
+    others = {k: v for k, v in counts.items()
+              if k not in ("pba_mega", "pba_mega_bf16") and v}
+    check(counts["pba_mega"] > 0 and counts["pba_mega_bf16"] > 0,
+          f"the ladder did not launch #1 in both tiers: {counts}")
+    check(not others, f"the ladder launched other kernels: {others}")
+    print(f"  wall {wall:.3f} s; kernel launches in phase 16: {counts}")
+    print(card)
+    return counts, err16
+
+
+def multiprocess_phase(card: str):
+    """Phase 17: ``scripts/multiprocess_smoke.py`` as a subprocess at each
+    process count of MP_PROCS; each must exit 0 and print OK on the
+    backend and device the host rule gives."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    print(f"phase 17: the multi-process smoke on {card}")
+    for procs, where in MP_PROCS.items():
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "photometric_bundle_adjustment_tpu_torch.scripts.multiprocess_smoke",
+             "--procs", str(procs), "--timeout", str(MP_TIMEOUT)],
+            capture_output=True, text=True, timeout=MP_TIMEOUT + 60, cwd=root)
+        wall = time.perf_counter() - t0
+        for line in out.stdout.splitlines():
+            print(f"  {line}")
+        check(out.returncode == 0 and f"-> OK; ranks_bit_equal True; {where}"
+              in out.stdout, f"--procs {procs} failed (rc {out.returncode}): "
+              f"{out.stdout[-1000:]}{out.stderr[-2000:]}")
+        print(f"  --procs {procs}: wall {wall:.3f} s")
+    print(card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2862,6 +3029,7 @@ def main() -> int:
         SEED,
     )
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = gpu_line()
     print(card)
@@ -2902,7 +3070,8 @@ def main() -> int:
     n_ham, sfm_pipe, sfm_seq = sfm_phase(device, card)
     front["launches"] += n_ham
     finished = interop.map_state_to_numpy(sfm_pipe)
-    n_mega, (err10, _, _, _) = refine_phase(sfm_pipe, sfm_seq, device, card)
+    n_mega, (err10, _, _, _), cost10 = refine_phase(sfm_pipe, sfm_seq, device,
+                                                    card)
     launches += n_mega
     front["launches"] += global_init_phase(sfm_seq, device, card)
     calibration_phase(device, card)
@@ -2910,6 +3079,13 @@ def main() -> int:
                                     device, card)
     n_scale, err14 = scale_phase(device, card)
     launches += n_scale
+    n_curve, err16 = value_curve_phase(sfm_pipe, finished, sfm_seq, cost10,
+                                       device, card)
+    launches += n_curve["pba_mega"]
+    bf16["launches"] += n_curve["pba_mega_bf16"]
+    bf16["max_abs_err"] = max(bf16["max_abs_err"], err16)
+    multiprocess_phase(card)
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "pba_mega_fused",

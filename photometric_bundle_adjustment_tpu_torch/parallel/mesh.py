@@ -10,7 +10,9 @@ through a ``Comm``.
 on the host's cards, one each); Gloo where ranks share a GPU or run on the
 CPU.  A ``backend=`` argument overrides the rule.  NCCL refuses two ranks
 on one device, so on a one-card host D > 1 ranks share ``cuda:0`` under
-Gloo and NCCL runs at D = 1.
+Gloo and NCCL runs at D = 1.  A job over several hosts
+(``initialize_multihost``) applies the rule per host, to its local ranks
+(``host_rule``).
 
 **Collectives.**  The four the solvers use, each a method of ``Comm``:
 
@@ -172,40 +174,60 @@ class Comm:
         return recv.to(x.device)
 
 
+def host_rule(device, local_rank: int, local_world: int,
+              backend: str | None = None) -> tuple[str, torch.device, str]:
+    """``(backend, device, reason)`` of the process that is local rank
+    ``local_rank`` of ``local_world`` processes on its host, by the backend
+    rule against this host's ``torch.cuda.device_count()``: NCCL on
+    ``cuda:local_rank`` where the host's processes each own a card, Gloo on
+    the shared card (``device``'s index, 0 by default) where they outnumber
+    its cards, Gloo on the CPU.  The global rank plays no part: rank 8 of
+    a job on two 8-card hosts is local rank 0 of the second.  ``backend``
+    overrides the rule's backend."""
+    reason = "the caller's choice"
+    if backend is None:
+        backend, reason = backend_for(device, local_world)
+    return backend, rank_device(device, local_rank, backend), reason
+
+
 def init(rank: int, world: int, *, backend: str | None = None,
          init_method: str = "env://", device="cuda",
-         timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> Comm:
+         timeout: datetime.timedelta = DEFAULT_TIMEOUT,
+         rank_dev: torch.device | None = None) -> Comm:
     """Join the process group as ``rank`` of ``world`` and return its
     ``Comm``.  ``device`` names the device type (and, shared, its index);
-    ``backend`` overrides the backend rule."""
+    ``backend`` overrides the backend rule.  ``rank_dev`` is the rank's own
+    device, given with its ``backend`` (``initialize_multihost``); by
+    default the rule picks both from ``rank``, every rank being local
+    (``spawn``)."""
     device = devices.resolve(device)
-    if backend is None:
-        backend, _ = backend_for(device, world)
-    dev = rank_device(device, rank, backend)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    if rank_dev is None:
+        backend, rank_dev, _ = host_rule(device, rank, world, backend)
+    if rank_dev.type == "cuda":
+        torch.cuda.set_device(rank_dev)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, timeout=timeout)
-    return Comm(rank, world, backend, dev, dist.group.WORLD)
+    return Comm(rank, world, backend, rank_dev, dist.group.WORLD)
 
 
 def initialize_multihost(*, backend: str | None = None, device="cuda",
                          timeout: datetime.timedelta = DEFAULT_TIMEOUT,
                          log=print) -> Comm:
-    """Join a run started by ``torchrun`` (its ``RANK``, ``WORLD_SIZE`` and
-    ``LOCAL_RANK`` in the environment, the store at ``env://``): the
-    counterpart of the JAX package's ``initialize_multihost``.  Each
-    process takes ``cuda:LOCAL_RANK`` under NCCL."""
+    """Join a run started by ``torchrun`` (its ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` in the environment, the store
+    at ``env://``): the counterpart of the JAX package's
+    ``initialize_multihost``.  The backend and the process's device follow
+    ``host_rule`` from its local rank and the host's process count (without
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``, one host: the global ones)."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     device = devices.resolve(device)
-    if device.type == "cuda":
-        # one process per card on each host: NCCL unless overridden
-        backend = backend or "nccl"
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    backend, dev, reason = host_rule(device, local_rank, local_world, backend)
     comm = init(rank, world, backend=backend, init_method="env://",
-                device=device, timeout=timeout)
+                device=device, timeout=timeout, rank_dev=dev)
     if rank == 0:
-        log(f"mesh: {comm.describe()}")
+        log(f"mesh: {comm.describe()} ({reason})")
     return comm
 
 

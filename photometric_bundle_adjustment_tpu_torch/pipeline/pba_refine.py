@@ -207,6 +207,21 @@ def refine_photometric_distributed(pipe, n_ranks: int = 4,
     return res, parity
 
 
+def level_problem(state, pyramid, level: int):
+    """The problem ``state`` at pyramid ``level`` (``build_pyramid``'s
+    list): coordinates scaled, the reference patches extracted again from
+    that level's images."""
+    imgs_l, H_l, W_l = pyramid[level]
+    prob_l = pba.scale_problem_to_level(state, level)
+    aux = prob_l.obs.aux
+    patch = pba.extract_ref_patches(
+        imgs_l.reshape(-1), prob_l.obs.anchor_cam, aux.uv_ref, H_l, W_l
+    )
+    return prob_l._replace(
+        obs=prob_l.obs._replace(aux=aux._replace(ref_patch=patch))
+    )
+
+
 def refine_photometric(pipe, max_iterations: int = 20,
                        huber_delta: float = 9.0, levels: int = 3,
                        sample_bf16: bool = False, log=print, *,
@@ -239,15 +254,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
     for level in range(levels - 1, -1, -1):
         imgs_l, H_l, W_l = pyramid[level]
         flat_l = imgs_l.reshape(-1)
-        prob_l = pba.scale_problem_to_level(state, level)
-        # re-extract the reference patches at this level
-        aux = prob_l.obs.aux
-        patch = pba.extract_ref_patches(
-            flat_l, prob_l.obs.anchor_cam, aux.uv_ref, H_l, W_l
-        )
-        prob_l = prob_l._replace(
-            obs=prob_l.obs._replace(aux=aux._replace(ref_patch=patch))
-        )
+        prob_l = level_problem(state, pyramid, level)
         _sync(device)
         t_setup = time.perf_counter()
         solve = pba_mega.make_mega_solver(

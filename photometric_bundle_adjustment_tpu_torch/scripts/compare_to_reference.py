@@ -41,6 +41,28 @@ def parse_ref_dump(path: str):
                   "observations": obs, "outlier_obs": out_obs}
 
 
+def load_our_map(path: str) -> tuple[dict, dict]:
+    """``(cameras, landmarks)`` of a map pickle (``.pkl``) or a ``map_io``
+    file."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        return ({f: np.asarray(p) for f, p in blob["cameras"].items()},
+                blob["landmarks"])
+    cameras, landmarks, _, _ = map_io.load_map(path)
+    return cameras, landmarks
+
+
+def trajectory_ate(ref_cams: dict, cameras: dict) -> tuple[float, float]:
+    """ATE-RMSE (m) of the cameras both maps hold, after an SE3 and after a
+    Sim3 alignment of ours onto the reference."""
+    shared = sorted(set(ref_cams) & set(cameras))
+    ours = np.stack([np.asarray(cameras[f])[:3] for f in shared])
+    ref = np.stack([ref_cams[f][:3] for f in shared])
+    return (evaluation.ate_rmse(ours, ref, with_scale=False),
+            evaluation.ate_rmse(ours, ref, with_scale=True))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ref-dump", required=True)
@@ -48,13 +70,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     ref_cams, ref_stats = parse_ref_dump(args.ref_dump)
-    if args.our_map.endswith(".pkl"):
-        with open(args.our_map, "rb") as f:
-            blob = pickle.load(f)
-        cameras = {f: np.asarray(p) for f, p in blob["cameras"].items()}
-        landmarks = blob["landmarks"]
-    else:
-        cameras, landmarks, _, _ = map_io.load_map(args.our_map)
+    cameras, landmarks = load_our_map(args.our_map)
     our_stats = {
         "cameras": len(cameras),
         "landmarks": len(landmarks),
@@ -64,10 +80,8 @@ def main(argv=None):
     }
 
     shared = sorted(set(ref_cams) & set(cameras))
-    ours = np.stack([np.asarray(cameras[f])[:3] for f in shared])
     ref = np.stack([ref_cams[f][:3] for f in shared])
-    ate = evaluation.ate_rmse(ours, ref, with_scale=False)
-    ate_s = evaluation.ate_rmse(ours, ref, with_scale=True)
+    ate, ate_s = trajectory_ate(ref_cams, cameras)
 
     print(f"{'':>16} {'reference':>10} {'ours':>10}")
     for k in ("cameras", "landmarks", "observations", "outlier_obs"):

@@ -340,3 +340,90 @@ def test_hamming_bound_by_hand():
 
 def test_schur_step_ops_by_hand():
     assert roofline.schur_step_ops(10, 12) == (2 * 10 * 144, 1728 / 3)
+
+
+# ---------------------------------------------------------------------------
+# the CPU-baseline contract (bench._cpu_baselines), its subprocess stubbed
+# ---------------------------------------------------------------------------
+
+COMMITTED_CPU_BASELINE = ROOT / "runs" / "cpu_baseline.json"
+CPU_STDOUT = ("timing the plain path\nCPU_DT 0.125\nCPU_PBA_DT 6.25e-02\n"
+              "CPU_MATCH_DT 1.5\n")
+
+
+@pytest.fixture
+def cpu_baseline_env(monkeypatch, tmp_path):
+    """``CPU_CACHE`` in ``tmp_path``, the subprocess stubbed (its calls and
+    every path ``bench`` opens recorded); afterwards the committed
+    ``runs/cpu_baseline.json`` (the JAX package's) was neither opened nor
+    changed."""
+    import subprocess
+    import types
+
+    stat, data = COMMITTED_CPU_BASELINE.stat(), COMMITTED_CPU_BASELINE.read_bytes()
+    env = types.SimpleNamespace(stdout=CPU_STDOUT, calls=[], opened=[],
+                                cache=tmp_path / "runs" / "cpu.json")
+
+    def run(cmd, **kw):
+        env.calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, env.stdout, "stderr text")
+
+    def recording_open(path, *a, **kw):
+        env.opened.append(Path(path).resolve())
+        return open(path, *a, **kw)
+
+    monkeypatch.setattr(bench, "subprocess", types.SimpleNamespace(run=run))
+    monkeypatch.setattr(bench, "open", recording_open, raising=False)
+    monkeypatch.setattr(bench, "CPU_CACHE", str(env.cache))
+    yield env
+    assert COMMITTED_CPU_BASELINE.resolve() not in env.opened
+    assert COMMITTED_CPU_BASELINE.read_bytes() == data
+    assert COMMITTED_CPU_BASELINE.stat().st_mtime_ns == stat.st_mtime_ns
+
+
+def test_cpu_baselines_parse_the_tags_and_cache(cpu_baseline_env):
+    env = cpu_baseline_env
+    values, err = bench._cpu_baselines()
+    assert values == {"ba": 0.125, "pba": 0.0625, "match": 1.5} and err == ""
+    assert env.calls == [[sys.executable, "-m",
+                          "photometric_bundle_adjustment_tpu_torch.bench",
+                          "--cpu-baseline"]]
+    with open(env.cache) as f:
+        assert json.load(f) == {"version": bench.CPU_BASELINE_VERSION,
+                                "values": values}
+    # a second call reads the cache and starts no subprocess
+    env.stdout = ""
+    assert bench._cpu_baselines() == (values, "")
+    assert len(env.calls) == 1
+
+
+@pytest.mark.parametrize("stdout", [
+    "CPU_DT 0.125\nCPU_PBA_DT_ERROR RuntimeError('no')\nCPU_MATCH_DT 1.5\n",
+    "CPU_DT 0.125\nCPU_MATCH_DT 1.5\n"], ids=["error_tag", "missing_tag"])
+def test_cpu_baselines_failed_value_is_nan_and_not_cached(cpu_baseline_env,
+                                                          stdout):
+    env = cpu_baseline_env
+    env.stdout = stdout
+    values, err = bench._cpu_baselines()
+    assert values["ba"] == 0.125 and values["match"] == 1.5
+    assert math.isnan(values["pba"])
+    assert err.endswith("stderr text") and "CPU_DT 0.125" in err
+    assert not env.cache.exists()
+
+
+def test_cpu_baselines_ignore_another_version(cpu_baseline_env):
+    env = cpu_baseline_env
+    env.cache.parent.mkdir(parents=True)
+    env.cache.write_text(json.dumps({
+        "version": bench.CPU_BASELINE_VERSION + 1,
+        "values": {"ba": 9.0, "pba": 9.0, "match": 9.0}}))
+    values, err = bench._cpu_baselines()
+    assert values == {"ba": 0.125, "pba": 0.0625, "match": 1.5} and err == ""
+    assert len(env.calls) == 1
+    with open(env.cache) as f:
+        assert json.load(f)["version"] == bench.CPU_BASELINE_VERSION
+
+
+def test_cpu_baseline_cache_is_not_the_committed_record():
+    assert Path(bench.CPU_CACHE).name != COMMITTED_CPU_BASELINE.name
+    assert Path(bench.CPU_CACHE).parent == Path("runs")

@@ -86,7 +86,8 @@ def test_port_imports_and_solves_without_jax():
         for name in ("parallel.mesh", "parallel.dist_fused",
                      "parallel.dist_pgo", "apps.build_voc",
                      "utils.visualize", "utils.roofline",
-                     "scripts.scale_stress", "bench"):
+                     "scripts.scale_stress", "bench",
+                     "scripts.multiprocess_smoke", "scripts.pba_value_curve"):
             assert port.__name__ + "." + name in names, name
         from photometric_bundle_adjustment_tpu_torch.features import match, pair_matching
         from photometric_bundle_adjustment_tpu_torch.models import synthetic
@@ -226,6 +227,8 @@ def _entry_point_calls():
     from photometric_bundle_adjustment_tpu_torch.scripts import (
         exp_roll,
         grid_overhead,
+        multiprocess_smoke,
+        pba_value_curve,
         scale_stress,
         sfm_run,
     )
@@ -319,6 +322,12 @@ def _entry_point_calls():
         "scale_stress_main": lambda: scale_stress.main(
             ["--sizes", "small", "--iters", "1"]),
         "bench_cli": lambda: bench.cli([]),
+        "multiprocess_smoke": lambda: multiprocess_smoke.main(["--procs", "2"]),
+        "pba_value_curve_room": lambda: pba_value_curve.main(
+            ["--room", "--frames", "1"]),
+        "pba_value_curve_euroc": lambda: pba_value_curve.main([]),
+        "run_ladder": lambda: pba_value_curve.run_ladder(
+            pipe, [0.0], lambda p: (0.0, 0.0)),
     }
 
 
@@ -335,7 +344,8 @@ def _entry_point_calls():
     "calibration_build_data", "sfm_run_global_init",
     "refine_photometric_distributed", "mesh_spawn", "ring_match_all_pairs",
     "dryrun_multichip", "build_voc", "scale_stress_run_one",
-    "scale_stress_main", "bench_cli"])
+    "scale_stress_main", "bench_cli", "multiprocess_smoke",
+    "pba_value_curve_room", "pba_value_curve_euroc", "run_ladder"])
 def test_entry_points_default_to_cuda(name):
     """Without a device argument every entry point runs on the card; on a
     host without CUDA that request raises, and nothing falls back to the
