@@ -22,6 +22,10 @@ the plane-layout builds of the same normal equations.  The JAX package's
 ``PBA_DUMP_BA_PROBLEM`` dump and its packed path are not ported (ROADMAP,
 "Not to port"): the port always uses the closed form, and the
 forward-mode Jacobian stays reachable through ``rj_fn=None``.
+
+Spans (``utils/spans``): ``geo.problem`` (``build_problem``), ``geo.plan``
+(``_accel_plan``) and ``geo.solve`` (the LM loop, whose ``lm.*`` spans
+``optim/ba`` records).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import camera_slab, cameras, se3
 from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+from photometric_bundle_adjustment_tpu_torch.utils.spans import span
 
 
 class GeometricObs(NamedTuple):
@@ -155,16 +160,18 @@ def build_problem(poses, inv_depth, anchor_cam, target_cam, landmark,
 
     if lm_valid is None:
         lm_valid = np.ones(np.shape(inv_depth), bool)
-    obs = ba.BAObservations(
-        anchor_cam=idx(anchor_cam), target_cam=idx(target_cam),
-        landmark=idx(landmark),
-        aux=GeometricObs(uv_target=flt(uv_target), uv_ref=flt(uv_ref),
-                         intr_ref=flt(intr_ref), intr_target=flt(intr_target)),
-        valid=mask(valid).to(dtype),
-    )
-    return ba.BAProblem(cam_states=flt(poses), inv_depth=flt(inv_depth),
-                        obs=obs, fixed_cams=mask(fixed_cams),
-                        lm_valid=mask(lm_valid))
+    with span("geo.problem"):
+        obs = ba.BAObservations(
+            anchor_cam=idx(anchor_cam), target_cam=idx(target_cam),
+            landmark=idx(landmark),
+            aux=GeometricObs(uv_target=flt(uv_target), uv_ref=flt(uv_ref),
+                             intr_ref=flt(intr_ref),
+                             intr_target=flt(intr_target)),
+            valid=mask(valid).to(dtype),
+        )
+        return ba.BAProblem(cam_states=flt(poses), inv_depth=flt(inv_depth),
+                            obs=obs, fixed_cams=mask(fixed_cams),
+                            lm_valid=mask(lm_valid))
 
 
 def _accel_plan(problem: ba.BAProblem):
@@ -207,6 +214,9 @@ def bundle_adjustment(problem: ba.BAProblem, model: str,
         return problem, ba.BAResult(cost=zero, initial_cost=zero,
                                     iterations=0, lam=cfg.init_lambda)
     if use_fused is None or use_fused:
-        problem, plan = _accel_plan(problem)
-        return make_fused_solver(model)(problem, plan, cfg)
-    return make_solver(model)(problem, cfg)
+        with span("geo.plan"):
+            problem, plan = _accel_plan(problem)
+        with span("geo.solve"):
+            return make_fused_solver(model)(problem, plan, cfg)
+    with span("geo.solve"):
+        return make_solver(model)(problem, cfg)

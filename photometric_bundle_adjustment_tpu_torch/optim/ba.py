@@ -19,7 +19,10 @@ bit; it is the oracle of the plan-based builds (``optim/fused.py``,
 ``ops/geo_mega.py``, ``ops/pba_mega.py``), whose sums run in a fixed
 order, and is on no timed path.  The two LM loops shared by every solver
 of the port (``lm_classic``, ``lm_fused_cost``) live here too: one host
-sync per try.
+sync per try.  They record spans (``utils/spans``) for every solver:
+``lm.build`` (a normal-equation build), ``lm.damped`` (a damped solve and
+its retraction), ``lm.cost`` (``lm_classic``'s residual passes) and
+``lm.accept`` (a try's host sync and accept test, once a try).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from photometric_bundle_adjustment_tpu_torch.utils.spans import span
 
 
 class BAObservations(NamedTuple):
@@ -319,22 +324,27 @@ def lm_classic(problem: BAProblem, build: Callable, solve_lam: Callable,
     ``build(problem) -> neq``, ``solve_lam(neq, lam) -> (dc, dp)``,
     ``cost_fn(problem) -> 0-d``, ``apply_step(problem, dc, dp)``."""
     with full_f32():
-        init_cost = cost_fn(problem)
+        with span("lm.cost"):
+            init_cost = cost_fn(problem)
         cost, cost_f = init_cost, float(init_cost)
         lam = float(cfg.init_lambda)
         iters = tries = builds = 0
         for _ in range(cfg.max_iterations):
-            neq = build(problem)
+            with span("lm.build"):
+                neq = build(problem)
             builds += 1
             accepted, n_tries = False, 0
             while (not accepted and n_tries < cfg.max_retries
                    and lam <= cfg.max_lambda):
-                dc, dp = solve_lam(neq, lam)
-                p_try = apply_step(problem, dc, dp)
-                new_cost = cost_fn(p_try)
-                c_new = float(new_cost)
+                with span("lm.damped"):
+                    dc, dp = solve_lam(neq, lam)
+                    p_try = apply_step(problem, dc, dp)
+                with span("lm.cost"):
+                    new_cost = cost_fn(p_try)
+                with span("lm.accept"):
+                    c_new = float(new_cost)
+                    accepted = c_new < cost_f and math.isfinite(c_new)
                 n_tries += 1
-                accepted = c_new < cost_f and math.isfinite(c_new)
                 if not accepted:
                     lam *= 10.0
             tries += n_tries
@@ -363,18 +373,22 @@ def lm_fused_cost(problem: BAProblem, build: Callable, solve_lam: Callable,
 
     ``build(problem) -> (cost, neq)``; the rest as in ``lm_classic``."""
     with full_f32():
-        init_cost, neq = build(problem)
+        with span("lm.build"):
+            init_cost, neq = build(problem)
         cost, cost_f = init_cost, float(init_cost)
         lam = float(cfg.init_lambda)
         rejects = iters = tries = 0
         while (iters < cfg.max_iterations
                and tries < cfg.max_iterations * cfg.max_retries):
-            dc, dp = solve_lam(neq, lam)
-            p_try = apply_step(problem, dc, dp)
-            cost_try, neq_try = build(p_try)
-            c_try = float(cost_try)
+            with span("lm.damped"):
+                dc, dp = solve_lam(neq, lam)
+                p_try = apply_step(problem, dc, dp)
+            with span("lm.build"):
+                cost_try, neq_try = build(p_try)
+            with span("lm.accept"):
+                c_try = float(cost_try)
+                ok = c_try < cost_f and math.isfinite(c_try)
             tries += 1
-            ok = c_try < cost_f and math.isfinite(c_try)
             small = False
             if ok:
                 small = abs(cost_f - c_try) <= (

@@ -7,6 +7,12 @@ coarse to fine over an image pyramid, in the chunk-plan family (the map's
 tracks are heavy-tailed) and, with ``sample_bf16``, the kernel's bf16 tier.
 ``refine_photometric_distributed`` solves the full-resolution problem on
 the landmark-sharded solver of ``parallel/dist_fused.py`` instead.
+
+``build_photometric_problem`` and ``refine_photometric`` record spans
+(``utils/spans``): ``pba.problem`` (with ``pba.problem.images``, the image
+stack made and copied, and ``pba.problem.obs``, the observation tables and
+the problem), ``pba.pyramid``, per level ``pba.level.problem``,
+``pba.level.plan`` and ``pba.level.solve``, then ``pba.writeback``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 from photometric_bundle_adjustment_tpu_torch.optim import ba
+from photometric_bundle_adjustment_tpu_torch.utils.spans import span
 
 
 def _sync(device: torch.device):
@@ -36,19 +43,29 @@ def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
     are not padded to power-of-two counts: those buckets only bound JAX
     recompiles, and PyTorch compiles nothing per shape."""
     device = devices.resolve(device)
-    cam_list = sorted(pipe.cameras)
-    cam_index = {f: i for i, f in enumerate(cam_list)}
-    lm_list = sorted(pipe.landmarks)
+    with span("pba.problem"):
+        cam_list = sorted(pipe.cameras)
+        cam_index = {f: i for i, f in enumerate(cam_list)}
+        lm_list = sorted(pipe.landmarks)
 
-    # image stack: one image per mapped camera, index == camera index
-    img0 = next(iter(pipe.images.values()))
-    H, W = img0.shape
+        # image stack: one image per mapped camera, index == camera index
+        img0 = next(iter(pipe.images.values()))
+        H, W = img0.shape
+        with span("pba.problem.images"):
+            images = np.zeros((len(cam_list), H, W), np.float32)
+            for f, i in cam_index.items():
+                images[i] = pipe.images[f].astype(np.float32)
+            images_flat = torch.as_tensor(images.reshape(-1), device=device)
+        with span("pba.problem.obs"):
+            problem = _observations(pipe, cam_list, cam_index, lm_list,
+                                    images_flat, H, W, device, dtype)
+    return problem, images_flat, H, W, cam_list, lm_list
+
+
+def _observations(pipe, cam_list, cam_index, lm_list, images_flat, H, W,
+                  device, dtype):
+    """The map's observation tables, reference patches and problem."""
     K = len(cam_list)
-    images = np.zeros((K, H, W), np.float32)
-    for f, i in cam_index.items():
-        images[i] = pipe.images[f].astype(np.float32)
-    images_flat = torch.as_tensor(images.reshape(-1), device=device)
-
     L = len(lm_list)
     rho = np.zeros(L, np.float64)
     anchor_uv = np.zeros((L, 2))
@@ -85,7 +102,7 @@ def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
         if f in cam_index:
             fixed[cam_index[f]] = True
     poses = np.stack([pipe.cameras[f] for f in cam_list])
-    problem = pba.build_problem(
+    return pba.build_problem(
         poses=torch.as_tensor(poses, dtype=dtype, device=device),
         affine=torch.zeros((K, 2), dtype=dtype, device=device),
         inv_depth=torch.as_tensor(rho, dtype=dtype, device=device),
@@ -101,7 +118,6 @@ def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
         fixed_cams=fixed,
         lm_valid=np.ones(L, bool),
     )
-    return problem, images_flat, H, W, cam_list, lm_list
 
 
 def refine_photometric_distributed(pipe, n_ranks: int = 4,
@@ -233,8 +249,9 @@ def refine_photometric(pipe, max_iterations: int = 20,
 
     Also sets ``pipe.photometric_levels``: one dict per pyramid level, in
     solve order, with the level's size, initial and final cost, accepted
-    iterations, tries, and the set-up and solve seconds (the solve timed
-    to a device sync).
+    iterations, tries, and the set-up and solve seconds: the host seconds
+    of the level's ``pba.level.plan`` and ``pba.level.solve`` spans, each
+    ended by a device sync.
 
     ``sample_bf16`` runs the megakernel's bf16 tier: it samples a bf16 copy
     of each level's image stack, with the taps and all arithmetic in f32."""
@@ -247,24 +264,25 @@ def refine_photometric(pipe, max_iterations: int = 20,
     cfg = ba.BAConfig(max_iterations=max_iterations, huber_delta=huber_delta,
                       function_tolerance=1e-8, sample_bf16=sample_bf16)
 
-    pyramid = pba.build_pyramid(images_flat.reshape(-1, H, W), levels)
+    with span("pba.pyramid"):
+        pyramid = pba.build_pyramid(images_flat.reshape(-1, H, W), levels)
     state = problem
     solved, res = problem, None
     stats = []
     for level in range(levels - 1, -1, -1):
         imgs_l, H_l, W_l = pyramid[level]
         flat_l = imgs_l.reshape(-1)
-        prob_l = level_problem(state, pyramid, level)
+        with span("pba.level.problem"):
+            prob_l = level_problem(state, pyramid, level)
         _sync(device)
-        t_setup = time.perf_counter()
-        solve = pba_mega.make_mega_solver(
-            model, flat_l, H_l, W_l, prob_l, device=device
-        )
-        _sync(device)
-        t_solve = time.perf_counter()
-        solved_l, res = solve(prob_l, cfg)
-        _sync(device)
-        t_end = time.perf_counter()
+        with span("pba.level.plan") as plan:
+            solve = pba_mega.make_mega_solver(
+                model, flat_l, H_l, W_l, prob_l, device=device
+            )
+            _sync(device)
+        with span("pba.level.solve") as run:
+            solved_l, res = solve(prob_l, cfg)
+            _sync(device)
         if level == 0:
             solved = solved_l
         # carry optimised state (poses/affine/depths) to the finer level
@@ -275,22 +293,24 @@ def refine_photometric(pipe, max_iterations: int = 20,
             level=level, H=H_l, W=W_l,
             initial_cost=float(res.initial_cost), cost=float(res.cost),
             iterations=res.iterations, tries=res.tries,
-            setup_s=t_solve - t_setup, solve_s=t_end - t_solve,
+            setup_s=plan.seconds, solve_s=run.seconds,
         ))
         log(
             f"  pba level {level} ({W_l}x{H_l}): cost "
             f"{float(res.initial_cost):.4e} -> {float(res.cost):.4e} "
             f"({res.iterations} it)"
         )
-    poses = solved.cam_states.pose.double().cpu().numpy()
-    rho = solved.inv_depth.double().cpu().numpy()
-    affine = solved.cam_states.affine.cpu().numpy()
-    for i, f in enumerate(cam_list):
-        pipe.cameras[f] = poses[i]
-    for i, t in enumerate(lm_list):
-        if rho[i] > 1e-6:  # keep depths sane
-            pipe.landmarks[t].inv_depth = float(rho[i])
-    pipe.photometric_affine = {f: affine[i] for i, f in enumerate(cam_list)}
+    with span("pba.writeback"):
+        poses = solved.cam_states.pose.double().cpu().numpy()
+        rho = solved.inv_depth.double().cpu().numpy()
+        affine = solved.cam_states.affine.cpu().numpy()
+        for i, f in enumerate(cam_list):
+            pipe.cameras[f] = poses[i]
+        for i, t in enumerate(lm_list):
+            if rho[i] > 1e-6:  # keep depths sane
+                pipe.landmarks[t].inv_depth = float(rho[i])
+        pipe.photometric_affine = {f: affine[i]
+                                   for i, f in enumerate(cam_list)}
     pipe.photometric_levels = stats
     n_obs = int((problem.obs.valid != 0).sum())
     log(

@@ -85,6 +85,7 @@ from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
 from photometric_bundle_adjustment_tpu_torch.ops import geo_mega, pba_mega
 from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
+from photometric_bundle_adjustment_tpu_torch.utils import spans
 
 
 # The EuRoC-scale synthetic map: V1's image count, size and camera model,
@@ -160,7 +161,8 @@ def profile_run(fn, runs: int, device: torch.device, top: int = 8) -> dict:
     host sync): the wall time, the device busy time (union of the device
     kernels' intervals) and its share of the wall, the device kernels per
     call and the operators with the largest self time on the device (on
-    the host off the card)."""
+    the host off the card).  User annotations (the program's spans, on the
+    host and on the device timeline) are neither kernels nor operators."""
     from torch.profiler import ProfilerActivity, profile
 
     gpu = device.type == "cuda"
@@ -172,12 +174,14 @@ def profile_run(fn, runs: int, device: torch.device, top: int = 8) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not spans.is_annotation(e)]
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e3
     key = "self_device_time_total" if gpu else "self_cpu_time_total"
-    ops = sorted(prof.key_averages(), key=lambda e: getattr(e, key),
-                 reverse=True)[:top]
+    ops = sorted((e for e in prof.key_averages()
+                  if not spans.is_annotation(e)),
+                 key=lambda e: getattr(e, key), reverse=True)[:top]
     return dict(
         wall_ms=wall_ms,
         device_busy_ms=busy_ms if gpu else None,
