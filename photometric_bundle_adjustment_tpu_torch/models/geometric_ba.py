@@ -24,7 +24,8 @@ the plane-layout builds of the same normal equations.  The JAX package's
 forward-mode Jacobian stays reachable through ``rj_fn=None``.
 
 Spans (``utils/spans``): ``geo.problem`` (``build_problem``), ``geo.plan``
-(``_accel_plan``) and ``geo.solve`` (the LM loop, whose ``lm.*`` spans
+(``_accel_plan``, built on the device; each of its reads to the host a
+``geo.plan.sync``) and ``geo.solve`` (the LM loop, whose ``lm.*`` spans
 ``optim/ba`` records).
 """
 
@@ -38,7 +39,11 @@ import torch
 
 from photometric_bundle_adjustment_tpu_torch import device as devices
 from photometric_bundle_adjustment_tpu_torch.core import camera_slab, cameras, se3
-from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+from photometric_bundle_adjustment_tpu_torch.optim import (
+    ba,
+    fused,
+    schur_plan_torch,
+)
 from photometric_bundle_adjustment_tpu_torch.utils.spans import span
 
 
@@ -180,16 +185,18 @@ def _accel_plan(problem: ba.BAProblem):
     3 x the valid observations; else the chunk plan over the problem's own
     rows (heavy-tailed maps: real EuRoC maps reach 55 observations on a
     landmark against about 5 on average).  No power-of-two buckets:
-    PyTorch compiles nothing per shape."""
+    PyTorch compiles nothing per shape.  Both plans are built on the
+    problem's device; the test reads its two counts in one
+    ``geo.plan.sync``, from the landmark sort that either builder then
+    takes."""
     o = problem.obs
-    ln = o.landmark.cpu().numpy()
-    vm = o.valid.cpu().numpy() != 0
     L = problem.inv_depth.shape[0]
-    n_valid = max(int(vm.sum()), 1)
-    smax = int(np.bincount(ln[vm], minlength=L).max()) if vm.any() else 1
-    if smax * L <= 3 * n_valid:
-        return fused.densify_problem(problem, pow2_buckets=False)
-    return problem, fused.plan_for_problem(problem, pow2_buckets=False)
+    tracks = schur_plan_torch.sort_tracks(o.landmark, o.valid != 0, L)
+    if max(tracks.longest, 1) * L <= 3 * max(tracks.n_valid, 1):
+        return fused.densify_problem(problem, pow2_buckets=False,
+                                     tracks=tracks)
+    return problem, fused.plan_for_problem(problem, pow2_buckets=False,
+                                           tracks=tracks)
 
 
 def bundle_adjustment(problem: ba.BAProblem, model: str,

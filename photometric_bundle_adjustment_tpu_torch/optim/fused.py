@@ -1,4 +1,4 @@
-"""Fused Schur-LM bundle-adjustment solver driven by host-precomputed plans.
+"""Fused Schur-LM bundle-adjustment solver driven by precomputed plans.
 
 Port of ``photometric_bundle_adjustment_tpu/optim/fused.py``, its dense
 one-hot-lifting solver (``_make_dense_fused_ba_solver``): the same problem
@@ -17,7 +17,8 @@ so that
 Two plan types, two builds: a ``SchurPlan`` (any observation order,
 ``plan_for_problem``) runs ``build_chunk``; a ``DenseLmSchurPlan`` (the
 slot-major order of ``densify_problem``) runs ``build_dense``.  Plans hold
-int64 tensors on the problem's device.
+int64 tensors on the problem's device, where ``optim/schur_plan_torch``
+builds them.
 
 The JAX package's entry-pair CPU solver (``optim/fused_host.py``) is not
 ported (ROADMAP, "Not to port: ``fused_host``").  Matrix products run in
@@ -28,18 +29,15 @@ from __future__ import annotations
 
 from typing import Callable
 
-import numpy as np
 import torch
 
-from photometric_bundle_adjustment_tpu_torch.optim import ba
+from photometric_bundle_adjustment_tpu_torch.optim import ba, schur_plan_torch
 from photometric_bundle_adjustment_tpu_torch.optim.ba import full_f32
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     ChunkPlan,
     DenseLmSchurPlan,
     SchurPlan,
     SegmentTree,
-    build_dense_lm_plan,
-    build_schur_plan,
 )
 
 
@@ -55,22 +53,18 @@ def plan_to(plan, device):
 
 def plan_for_problem(problem: ba.BAProblem, **kwargs):
     """The chunked ``SchurPlan`` of a problem's observation graph, built on
-    the host, as int64 tensors on the problem's device.  ``kwargs`` go to
-    ``build_schur_plan`` (chunk sizes, ``pow2_buckets``)."""
+    the problem's device (``schur_plan_torch.build_schur_plan``) as int64
+    tensors.  ``kwargs`` go to the builder (chunk sizes,
+    ``pow2_buckets``, ``tracks``)."""
     o = problem.obs
-    K = ba.num_cams(problem)
-    L = problem.inv_depth.shape[0]
-    plan = build_schur_plan(
-        o.anchor_cam.cpu().numpy(), o.target_cam.cpu().numpy(),
-        o.landmark.cpu().numpy(), K, L,
-        valid=o.valid.cpu().numpy() != 0, **kwargs,
-    )
-    return plan_to(plan, problem.inv_depth.device)
+    return schur_plan_torch.build_schur_plan(
+        o.anchor_cam, o.target_cam, o.landmark, ba.num_cams(problem),
+        problem.inv_depth.shape[0], valid=o.valid != 0, **kwargs)
 
 
 def densify_problem(problem: ba.BAProblem, **kwargs):
-    """Host-side reorder of a problem into the slot-major landmark-dense
-    layout.
+    """Reorder a problem into the slot-major landmark-dense layout, on its
+    device.
 
     Returns ``(problem2, DenseLmSchurPlan)``: observation row ``s*L + l``
     of ``problem2`` is the s-th observation of landmark l (padding slots
@@ -78,33 +72,23 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
     landmark-axis reduction of ``build_dense`` into a reshape and a sum
     over the leading slot axis.  Camera and landmark states are untouched;
     only the observation order differs.  ``kwargs`` go to
-    ``build_dense_lm_plan``."""
+    ``schur_plan_torch.build_dense_lm_plan``."""
     o = problem.obs
-    K = ba.num_cams(problem)
     L = problem.inv_depth.shape[0]
-    dev = problem.inv_depth.device
-    an = o.anchor_cam.cpu().numpy()
-    tn = o.target_cam.cpu().numpy()
-    valid = o.valid.cpu().numpy()
-    perm, plan = build_dense_lm_plan(
-        an, tn, o.landmark.cpu().numpy(), K, L, valid=valid != 0, **kwargs
-    )
+    perm, plan = schur_plan_torch.build_dense_lm_plan(
+        o.anchor_cam, o.target_cam, o.landmark, ba.num_cams(problem), L,
+        valid=o.valid != 0, **kwargs)
     filled = perm >= 0
-    S = plan.lm_cam.shape[0]
-    take = torch.as_tensor(np.where(filled, perm, 0), device=dev)
-
-    def idx(x):
-        return torch.as_tensor(x, dtype=torch.int64, device=dev)
-
+    take = torch.where(filled, perm, 0)
     obs2 = ba.BAObservations(
-        anchor_cam=idx(np.where(filled, an[perm], 0)),
-        target_cam=idx(np.where(filled, tn[perm], 0)),
-        landmark=idx(np.tile(np.arange(L), S)),
+        anchor_cam=torch.where(filled, o.anchor_cam[take], 0),
+        target_cam=torch.where(filled, o.target_cam[take], 0),
+        landmark=torch.arange(L, device=perm.device).repeat(
+            plan.lm_cam.shape[0]),
         aux=ba.take_rows(o.aux, take),
-        valid=torch.as_tensor(np.where(filled, valid[perm], 0),
-                              dtype=o.valid.dtype, device=dev),
+        valid=torch.where(filled, o.valid[take], 0).to(o.valid.dtype),
     )
-    return problem._replace(obs=obs2), plan_to(plan, dev)
+    return problem._replace(obs=obs2), plan
 
 
 # the bytes of one level's gathered chunk values, (chunks, B, D), above
