@@ -41,8 +41,9 @@ runs:
     the coupling pre-scaled by sqrt(inv0); ``solve_lam2`` solves it.
 
 ``BAConfig.sample_bf16`` picks the kernel's bf16 tier for a build: the
-kernel samples a bf16 copy of the image stack (made once per solver) and
-computes in f32 as the f32 tier does.
+kernel samples a bf16 copy of the image stack (made once per solver, by
+the solver's ``stack``; ``STACK_CASTS`` counts the copies) and computes
+in f32 as the f32 tier does.
 
 The kernel's columns are observation rows: the chunk family's are the
 valid observations sorted by target image plus one zero column for the
@@ -105,6 +106,10 @@ MODELS = ("pinhole", "eucm", "ds", "kb4")
 # tier (an f32 image stack) and the bf16 tier (a bf16 stack).
 KERNEL_LAUNCHES = 0
 KERNEL_LAUNCHES_BF16 = 0
+# Copies of an image stack to the bf16 tier's dtype by a solver's
+# ``stack`` in this process, and the bytes of the copies made.
+STACK_CASTS = 0
+STACK_CAST_BYTES = 0
 
 
 class MegaConsts(NamedTuple):
@@ -626,7 +631,9 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     ``problem_slot`` fixes the observation graph; ``solve`` takes a
     problem with the same observations and any state.  A build with
     ``cfg.sample_bf16`` samples a bf16 copy of the stack, made at the
-    first such build and kept.  Everything runs on ``device``."""
+    first ``stack`` with such a ``cfg`` (``refine_photometric`` calls it
+    in the level's plan; otherwise the first such build) and kept.
+    Everything runs on ``device``."""
     if plan_slot is not None and not isinstance(plan_slot, DenseLmSchurPlan):
         raise TypeError(f"plan_slot must be a DenseLmSchurPlan, got "
                         f"{type(plan_slot).__name__}")
@@ -645,9 +652,12 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     stacks = {torch.float32: images}
 
     def stack(cfg: ba.BAConfig):
+        global STACK_CASTS, STACK_CAST_BYTES
         dtype = torch.bfloat16 if cfg.sample_bf16 else torch.float32
         if dtype not in stacks:
-            stacks[dtype] = images.to(dtype)
+            copy = stacks[dtype] = images.to(dtype)
+            STACK_CASTS += 1
+            STACK_CAST_BYTES += copy.numel() * copy.element_size()
         return stacks[dtype]
 
     def build(problem, cfg: ba.BAConfig):

@@ -12,7 +12,9 @@ the landmark-sharded solver of ``parallel/dist_fused.py`` instead.
 (``utils/spans``): ``pba.problem`` (with ``pba.problem.images``, the image
 stack made and copied, and ``pba.problem.obs``, the observation tables and
 the problem), ``pba.pyramid``, per level ``pba.level.problem``,
-``pba.level.plan`` and ``pba.level.solve``, then ``pba.writeback``.
+``pba.level.plan`` (with ``sample_bf16``, ``pba.level.stack``: the level's
+bf16 copy of the image stack) and ``pba.level.solve``, then
+``pba.writeback``.
 """
 
 from __future__ import annotations
@@ -249,12 +251,15 @@ def refine_photometric(pipe, max_iterations: int = 20,
 
     Also sets ``pipe.photometric_levels``: one dict per pyramid level, in
     solve order, with the level's size, initial and final cost, accepted
-    iterations, tries, and the set-up and solve seconds: the host seconds
-    of the level's ``pba.level.plan`` and ``pba.level.solve`` spans, each
-    ended by a device sync.
+    iterations, tries, and the set-up, cast and solve seconds: the host
+    seconds of the level's ``pba.level.plan``, ``pba.level.stack`` and
+    ``pba.level.solve`` spans, each ended by a device sync (``stack_s`` is
+    0.0 without ``sample_bf16``, which casts nothing).
 
     ``sample_bf16`` runs the megakernel's bf16 tier: it samples a bf16 copy
-    of each level's image stack, with the taps and all arithmetic in f32."""
+    of each level's image stack, with the taps and all arithmetic in f32.
+    The copy is made in the level's plan, under its own span, between two
+    syncs, so that the solve holds no cast."""
     device = devices.resolve(device)
     t0 = time.perf_counter()
     problem, images_flat, H, W, cam_list, lm_list = build_photometric_problem(
@@ -279,6 +284,13 @@ def refine_photometric(pipe, max_iterations: int = 20,
             solve = pba_mega.make_mega_solver(
                 model, flat_l, H_l, W_l, prob_l, device=device
             )
+            stack_s = 0.0
+            if sample_bf16:
+                _sync(device)
+                with span("pba.level.stack") as cast:
+                    solve.stack(cfg)
+                    _sync(device)
+                stack_s = cast.seconds
             _sync(device)
         with span("pba.level.solve") as run:
             solved_l, res = solve(prob_l, cfg)
@@ -293,7 +305,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
             level=level, H=H_l, W=W_l,
             initial_cost=float(res.initial_cost), cost=float(res.cost),
             iterations=res.iterations, tries=res.tries,
-            setup_s=plan.seconds, solve_s=run.seconds,
+            setup_s=plan.seconds, stack_s=stack_s, solve_s=run.seconds,
         ))
         log(
             f"  pba level {level} ({W_l}x{H_l}): cost "
