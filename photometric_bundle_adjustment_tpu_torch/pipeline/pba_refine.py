@@ -15,6 +15,20 @@ the problem), ``pba.pyramid``, per level ``pba.level.problem``,
 ``pba.level.plan`` (with ``sample_bf16``, ``pba.level.stack``: the level's
 bf16 copy of the image stack) and ``pba.level.solve``, then
 ``pba.writeback``.
+
+``pba.problem.images`` ships the images in their own dtype: one stack,
+filled on the host (in pinned memory when the device is a card), copied
+to the device and widened there to float32 by one cast (exact from 8
+bits; from float64 rounded to nearest even, as numpy's ``astype``).  On a
+card the copy is asynchronous, so the span holds the fill and the
+launches but not the copy's end, which the first stream-ordered wait in
+``pba.problem.obs`` pays.  The pinned block comes from PyTorch's caching
+host allocator, which rounds it up to a power of two and keeps it for
+the process (64 MiB for the 164-image room, 512 MiB for 960 images): the
+first call pays its allocation, later calls reuse it.  The module
+counters ``IMAGE_UPLOADS`` and ``IMAGE_UPLOAD_BYTES`` count the stacks
+copied from the host to another device and their bytes (1 a texel for
+8-bit images).
 """
 
 from __future__ import annotations
@@ -29,6 +43,10 @@ from photometric_bundle_adjustment_tpu_torch.models import photometric_ba as pba
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega
 from photometric_bundle_adjustment_tpu_torch.optim import ba
 from photometric_bundle_adjustment_tpu_torch.utils.spans import span
+
+
+IMAGE_UPLOADS = 0
+IMAGE_UPLOAD_BYTES = 0
 
 
 def _sync(device: torch.device):
@@ -54,14 +72,32 @@ def build_photometric_problem(pipe, *, device="cuda", dtype=torch.float32):
         img0 = next(iter(pipe.images.values()))
         H, W = img0.shape
         with span("pba.problem.images"):
-            images = np.zeros((len(cam_list), H, W), np.float32)
-            for f, i in cam_index.items():
-                images[i] = pipe.images[f].astype(np.float32)
-            images_flat = torch.as_tensor(images.reshape(-1), device=device)
+            images_flat = _image_stack(
+                [pipe.images[f] for f in cam_list], H, W, device)
         with span("pba.problem.obs"):
             problem = _observations(pipe, cam_list, cam_index, lm_list,
                                     images_flat, H, W, device, dtype)
     return problem, images_flat, H, W, cam_list, lm_list
+
+
+def _image_stack(images, H, W, device) -> torch.Tensor:
+    """The (K*H*W,) float32 stack of ``images`` on ``device``, copied in
+    the images' own dtype and widened on the device."""
+    global IMAGE_UPLOADS, IMAGE_UPLOAD_BYTES
+    dtype = torch.from_numpy(
+        np.empty(0, np.result_type(*(im.dtype for im in images)))).dtype
+    # on a card, a pinned block of the caching host allocator: the copy is
+    # asynchronous, and the allocator hands the block out again only once
+    # the copy that read it has finished
+    pinned = device.type == "cuda"
+    host = torch.empty((len(images), H, W), dtype=dtype, pin_memory=pinned)
+    stack = host.numpy()
+    for i, im in enumerate(images):
+        stack[i] = im
+    if device.type != "cpu":
+        IMAGE_UPLOADS += 1
+        IMAGE_UPLOAD_BYTES += host.nbytes
+    return host.to(device, non_blocking=pinned).reshape(-1).to(torch.float32)
 
 
 def _observations(pipe, cam_list, cam_index, lm_list, images_flat, H, W,
