@@ -1860,10 +1860,10 @@ def geo_bench_phase(device, card: str, se3):
     step = geo_fixed_step(dense, prob_d, cfg._replace(max_iterations=1))
     ms = fixed_step_ms(step, prob_d, GEO_STEPS, device)
     ms_graph = graph_ms(lambda: step(prob_d)[1])
-    print(f"  fixed LM step (build_geo_dense2, solve_lam2 at lambda 1e-4, "
-          f"retraction): {ms:.4f} ms launched from the host ({GEO_STEPS} "
-          f"chained steps less one, CUDA events), {ms_graph:.4f} ms from a "
-          f"CUDA graph of 20 steps")
+    print(f"  fixed LM step (build_geo on the dense plan, fused.solve_lam "
+          f"at lambda 1e-4, retraction): {ms:.4f} ms launched from the host "
+          f"({GEO_STEPS} chained steps less one, CUDA events), "
+          f"{ms_graph:.4f} ms from a CUDA graph of 20 steps")
     print(f"  geo_lm_iters_per_s {1e3 / ms:.2f} (host-launched; "
           f"{1e3 / ms_graph:.2f} from the graph) on {card}")
     return 1e3 / ms, 1e3 / ms_graph

@@ -156,8 +156,9 @@ def build_pba_step(dtype, use_kernel: bool, sample_bf16: bool = False, *,
     retraction.  Huber 9.
 
     ``use_kernel``: the megakernel solver (``pba_mega.make_mega_solver``,
-    ``build_mega2``, ``solve_lam2``): kernel #1 once a step, in its bf16
-    tier with ``sample_bf16``; on the CPU its plain version.  Otherwise
+    its dense family: ``build_mega``, ``fused.solve_lam``): kernel #1
+    once a step, in its bf16 tier with ``sample_bf16``; on the CPU its
+    plain version.  Otherwise
     the gather solver ``photometric_ba.make_fused_solver``, the CPU
     baseline's path.  The JAX function also returned a ``const`` to carry
     the image stack across its jit boundary; here the step holds it.

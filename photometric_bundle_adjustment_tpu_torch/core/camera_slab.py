@@ -5,6 +5,10 @@ per-observation quantity is a row of a ``(rows, O)`` tensor (observation
 axis last).  ``project_slab`` maps point planes ``(qx, qy, qz)`` plus an
 ``(8, O)`` intrinsics slab to pixel planes ``(u, v)`` and the six
 projection-Jacobian planes ``d(u, v)/d(x, y, z)`` in closed form.
+``warp_slab`` puts the two-camera warp of anchored inverse-depth points in
+front of it, with the Jacobian-coefficient planes of both poses and the
+inverse depth: the geometry that the photometric megakernel's plain
+version and the plane-layout geometric build share.
 """
 
 from __future__ import annotations
@@ -143,3 +147,64 @@ def project_slab(model: str, intr, qx, qy, qz):
             f"Available: {sorted(_SLAB_MODELS)}"
         ) from None
     return fn(intr, qx, qy, qz)
+
+
+def _rot_planes(q):
+    """Unit quaternion rows (N, 4) -> 3x3 list of (N,) rotation entries."""
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return [
+        [1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+        [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
+        [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
+    ]
+
+
+def warp_slab(model: str, pa, pc, rho, d3, intr_t):
+    """Plane-layout warp of anchored points into their target cameras.
+
+    Column n holds P points of one landmark: unit anchor bearings ``d3``
+    (3P, N), rows j*P + p, with P = d3.shape[0] // 3 (8 for a DSO patch, 1
+    for a geometric observation), at inverse depth ``rho`` (1, N), seen
+    from anchor pose ``pa`` and target pose ``pc`` ((N, 7) rows [t, q]),
+    projected with the target intrinsics ``intr_t`` (8, N).  The warped
+    point is q = M d + rho u with M = Rc^T Ra and u = Rc^T (ta - tc).
+
+    Returns (ux, uy, GA, GB): the pixel planes (P, N), unmasked, and the
+    (13P, N) slabs du/dtheta and dv/dtheta (k-major rows k*P + p, theta_k
+    in [t_a(3), phi_a(3), t_c(3), phi_c(3), rho])."""
+    P = d3.shape[0] // 3
+    Ra = _rot_planes(pa[:, 3:7])
+    Rc = _rot_planes(pc[:, 3:7])
+    M = [[(Rc[0][j] * Ra[0][c] + Rc[1][j] * Ra[1][c]
+           + Rc[2][j] * Ra[2][c])[None, :] for c in range(3)]
+         for j in range(3)]
+    dt = [pa[:, i] - pc[:, i] for i in range(3)]
+    u = [(Rc[0][j] * dt[0] + Rc[1][j] * dt[1] + Rc[2][j] * dt[2])[None, :]
+         for j in range(3)]
+    d = [d3[j * P:(j + 1) * P] for j in range(3)]             # 3 x (P, N)
+    q = [M[j][0] * d[0] + M[j][1] * d[1] + M[j][2] * d[2] + rho * u[j]
+         for j in range(3)]
+    ux, uy, Jpi0, Jpi1 = project_slab(model, intr_t, q[0], q[1], q[2])
+
+    def coeff(Jp):
+        a = [Jp[0] * M[0][c] + Jp[1] * M[1][c] + Jp[2] * M[2][c]
+             for c in range(3)]
+        blocks = [rho * a[0], rho * a[1], rho * a[2]]
+        # dphi_a: d x a
+        blocks += [d[1] * a[2] - d[2] * a[1],
+                   d[2] * a[0] - d[0] * a[2],
+                   d[0] * a[1] - d[1] * a[0]]
+        # dt_c: -rho * Jpi
+        blocks += [-rho * Jp[0], -rho * Jp[1], -rho * Jp[2]]
+        # dphi_c: Jpi x q
+        blocks += [Jp[1] * q[2] - Jp[2] * q[1],
+                   Jp[2] * q[0] - Jp[0] * q[2],
+                   Jp[0] * q[1] - Jp[1] * q[0]]
+        # drho: Jpi . u
+        blocks += [Jp[0] * u[0] + Jp[1] * u[1] + Jp[2] * u[2]]
+        return torch.cat(blocks, dim=0)                       # (13P, N)
+
+    return ux, uy, coeff(Jpi0), coeff(Jpi1)

@@ -200,16 +200,14 @@ def _accel_plan(problem: ba.BAProblem):
 
 
 def bundle_adjustment(problem: ba.BAProblem, model: str,
-                      cfg: ba.BAConfig = ba.BAConfig(),
-                      use_fused: bool | None = None):
+                      cfg: ba.BAConfig = ba.BAConfig()):
     """The Schur-LM solve of ``problem`` on its device; returns ``(problem,
     BAResult)``.  The reference's defaults: Huber 1 px, 20 iterations.
 
-    ``use_fused`` (None means yes) selects the plan-based fused solver on
-    ``_accel_plan``'s layout; the returned problem then holds the
-    observations in that layout's order, and its camera states and
-    inverse depths index as the input's do.  ``use_fused=False`` runs the
-    scatter-add reference ``make_solver``.
+    The plan-based fused solver runs on ``_accel_plan``'s layout; the
+    returned problem then holds the observations in that layout's order,
+    and its camera states and inverse depths index as the input's do.
+    ``make_solver`` is the scatter-add reference of the same solve.
 
     A problem without landmarks or without valid observations has nothing
     to solve: it comes back unchanged, at cost 0 and no iteration (the
@@ -220,10 +218,7 @@ def bundle_adjustment(problem: ba.BAProblem, model: str,
                            device=problem.inv_depth.device)
         return problem, ba.BAResult(cost=zero, initial_cost=zero,
                                     iterations=0, lam=cfg.init_lambda)
-    if use_fused is None or use_fused:
-        with span("geo.plan"):
-            problem, plan = _accel_plan(problem)
-        with span("geo.solve"):
-            return make_fused_solver(model)(problem, plan, cfg)
+    with span("geo.plan"):
+        problem, plan = _accel_plan(problem)
     with span("geo.solve"):
-        return make_solver(model)(problem, cfg)
+        return make_fused_solver(model)(problem, plan, cfg)

@@ -418,7 +418,8 @@ def make_kernel_fused_solver(model: str, images_flat: torch.Tensor, H: int,
 def make_kernel_dense_solver(model: str, images_flat: torch.Tensor, H: int,
                              W: int, problem_slot: ba.BAProblem, *,
                              device="cuda"):
-    """Fused dense-assembly solver (``build_dense``, slot-major layout)
+    """Fused dense-assembly solver (``fused.assemble`` on a
+    ``DenseLmSchurPlan``, slot-major layout)
     whose sampling runs through the patch kernel, on ``device``.
 
     ``problem_slot`` must be the slot-major problem of

@@ -1,6 +1,6 @@
 """Photometric-BA megakernel solve: warp, sample, Jacobian, Huber and Schur
-payloads in one CUDA kernel, then normal-equation assembly and a damped
-Schur solve in PyTorch.
+payloads in one CUDA kernel, then the normal-equation assembly and the
+damped Schur solve of ``optim/fused``.
 
 Port of ``photometric_bundle_adjustment_tpu/ops/pba_mega.py``, both of its
 families: the chunk-plan family for ragged maps and the dense slot-major
@@ -24,21 +24,18 @@ runs:
       [179:184)  zero
 
     Its plain PyTorch version, ``mega_fused_reference``, is the JAX
-    package's two steps: ``warp_slabs`` (the warp, the projection
-    (``core/camera_slab.py``) and the two 13-column coefficient slabs
-    GA/GB with J_geo[p, k] = gx[p] GA[k*P+p] + gy[p] GB[k*P+p]), then
-    ``mega_rj_reference``;
+    package's two steps: ``warp_slabs`` (the warp, the projection and the
+    two 13-column coefficient slabs GA/GB of
+    ``core/camera_slab.warp_slab``, with J_geo[p, k] = gx[p] GA[k*P+p] +
+    gy[p] GB[k*P+p]), then ``mega_rj_reference``;
 
-  phase 2, chunk family (``build_mega_chunk``): chunk-plan normal-equation
-    assembly (``optim/schur_plan.build_schur_plan`` on the kernel's
-    columns), and ``solve_lam``: the damped reduced camera system by
-    Cholesky and back-substitution for the inverse depths;
-
-  phase 2, dense family (``build_mega2``): on the slot-major columns of
-    ``fused.densify_problem``, landmark reductions as sums over the slot
-    axis, the camera lifts as fixed-order sums with the anchor as one
-    extra slot, and a component-major reduced system (row c*K + k) with
-    the coupling pre-scaled by sqrt(inv0); ``solve_lam2`` solves it.
+  phase 2 (``build_mega``): the payload's Jacobian rows and A0/A1 handed
+    to ``fused.assemble``, with the plan of either family: the chunk
+    family's ``SchurPlan`` (``optim/schur_plan.build_schur_plan`` on the
+    kernel's columns) or the dense family's ``DenseLmSchurPlan``
+    (``fused.densify_problem``, slot-major); then ``fused.solve_lam``, the
+    damped reduced camera system by Cholesky and back-substitution for
+    the inverse depths.
 
 ``BAConfig.sample_bf16`` picks the kernel's bf16 tier for a build: the
 kernel samples a bf16 copy of the image stack (made once per solver, by
@@ -46,16 +43,16 @@ the solver's ``stack``; ``STACK_CASTS`` counts the copies) and computes
 in f32 as the f32 tier does.
 
 The kernel's columns are observation rows: the chunk family's are the
-valid observations sorted by target image plus one zero column for the
-plans' dummies; the dense family's are the slot rows, empty slots zero
-columns.  Each column reads its own image; there are no image groups and
-no padding rows.  Every sum of the assembly runs in an order fixed on the
-host (``optim/fused.tree_sum``), so a build repeats bit for bit.  A
-non-finite projection makes that observation's residual and cost NaN, so
-the LM loop rejects the step.  Sampling clamps to the image ([0, W-1.001])
-with zero gradient outside it, as the gather sampler of
-``models/photometric_ba.py`` does; the TPU kernel's 24x128 window clamp
-is a TPU artefact and is not ported.
+valid observations sorted by target image, the dense family's the slot
+rows, empty slots zero columns; each family ends with one zero column,
+which the plans' dummies gather.  Each column reads its own image; there
+are no image groups and no padding rows.  Every sum of the assembly runs
+in an order fixed on the host (``optim/fused.tree_sum``), so a build
+repeats bit for bit.  A non-finite projection makes that observation's
+residual and cost NaN, so the LM loop rejects the step.  Sampling clamps
+to the image ([0, W-1.001]) with zero gradient outside it, as the gather
+sampler of ``models/photometric_ba.py`` does; the TPU kernel's 24x128
+window clamp is a TPU artefact and is not ported.
 """
 
 from __future__ import annotations
@@ -75,22 +72,10 @@ from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
     cam_retract,
 )
 from photometric_bundle_adjustment_tpu_torch.ops import _build
-from photometric_bundle_adjustment_tpu_torch.optim import ba
-from photometric_bundle_adjustment_tpu_torch.optim.fused import (
-    _chunk_sum,
-    _one_hot,
-    damped_camera_solve,
-    full_f32,
-    plan_to,
-    solve_lam,
-    tree_sum,
-)
+from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     DenseLmSchurPlan,
-    SchurPlan,
-    SegmentTree,
     build_schur_plan,
-    build_segment_tree,
 )
 
 P = 8            # DSO patch size
@@ -127,18 +112,6 @@ class MegaConsts(NamedTuple):
     cols: torch.Tensor    # (4, N) int32 rows [an, tn, lm, timg]: the kernel's
 
 
-class MegaPlan(NamedTuple):
-    """Dense-family assembly plan over the slot rows of a
-    ``DenseLmSchurPlan``; int64 on the solve's device."""
-
-    pg: torch.Tensor          # (NCp, Bp) slot rows; dummy -> a zero column
-    cc_seg: SegmentTree       # the pair-chunk blocks into the K*K rows
-    lm_cam: torch.Tensor      # (S, L) target camera of each slot; K = padding
-    anchor_cam_of_lm: torch.Tensor  # (L,) anchor camera; K = no observation
-    m_seg: SegmentTree        # S slots + the anchor into L*K lift rows
-    gc_seg: SegmentTree       # S slots + the anchor into the K cameras
-
-
 # ---------------------------------------------------------------------------
 # host-side layout
 # ---------------------------------------------------------------------------
@@ -160,7 +133,7 @@ def build_chunk_mega_plan(problem: ba.BAProblem):
     PyTorch compiles nothing per shape).  Returns ``(cplan, rows)``:
     ``rows`` (N,) maps each column to its observation row (-1 for the zero
     column); feed it to ``make_mega_consts`` and ``cplan`` to
-    ``plan_to``."""
+    ``fused.plan_to``."""
     o = problem.obs
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
@@ -173,35 +146,6 @@ def build_chunk_mega_plan(problem: ba.BAProblem):
         lm_chunk=LM_CHUNK, cam_chunk=CAM_CHUNK, pow2_buckets=False,
     )
     return cplan, np.r_[vidx, -1]
-
-
-def build_mega_plan(problem_slot: ba.BAProblem, plan_slot: DenseLmSchurPlan):
-    """Dense-family layout for a slot-major problem (host, numpy).
-
-    ``problem_slot``/``plan_slot`` come from ``fused.densify_problem``.
-    The kernel's columns are the S x L slot rows, empty slots zero
-    columns; the pair chunks' dummies gather the first empty slot, or one
-    zero column appended where every slot is filled.  Returns ``(plan,
-    rows)`` as ``build_chunk_mega_plan``: feed ``plan`` to ``plan_to``.
-    The geometric dense build (``ops/geo_mega.py``) takes the same plan."""
-    K = ba.num_cams(problem_slot)
-    valid = _numpy(problem_slot.obs.valid) != 0
-    Os = valid.shape[0]
-    rows = np.where(valid, np.arange(Os), -1)
-    empty = np.flatnonzero(~valid)
-    if empty.size:
-        zrow = int(empty[0])
-    else:
-        zrow, rows = Os, np.r_[rows, -1]
-    pg = _numpy(plan_slot.pg)
-    lm_cam = _numpy(plan_slot.lm_cam)
-    anchor = _numpy(plan_slot.anchor_cam_of_lm)
-    ext = np.concatenate([lm_cam, anchor[None]], 0)
-    plan = MegaPlan(pg=np.where(pg >= Os, zrow, pg), cc_seg=plan_slot.cc_seg,
-                    lm_cam=lm_cam, anchor_cam_of_lm=anchor,
-                    m_seg=plan_slot.m_seg,
-                    gc_seg=build_segment_tree(ext, K))
-    return plan, rows
 
 
 def make_mega_consts(model: str, problem: ba.BAProblem,
@@ -238,69 +182,19 @@ def make_mega_consts(model: str, problem: ba.BAProblem,
 # ---------------------------------------------------------------------------
 
 
-def _rot_planes(q):
-    """Unit quaternion rows (N, 4) -> 3x3 list of (N,) rotation entries."""
-    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
-    xx, yy, zz = x * x, y * y, z * z
-    xy, xz, yz = x * y, x * z, y * z
-    wx, wy, wz = w * x, w * y, w * z
-    return [
-        [1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
-        [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
-        [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
-    ]
-
-
 def warp_slabs(model: str, cam_states, inv_depth, consts: MegaConsts):
-    """Plane-layout warp evaluation over the columns of ``consts``: the
-    first half of the kernel's plain version.
+    """Plane-layout warp evaluation over the columns of ``consts``
+    (``camera_slab.warp_slab``): the first half of the kernel's plain
+    version.
 
     Returns (ux, uy, fin, GA, GB): pixel planes (P, N) with non-finite
     projections replaced by -1e6, the finite mask (P, N), and the two
     (104, N) Jacobian coefficient slabs (k-major rows k*P + p).
     """
     poses = cam_states.pose
-    pa = poses[consts.an]                                     # (N, 7)
-    pc = poses[consts.tn]
-    rho = inv_depth[consts.lm][None, :]                       # (1, N)
-    Ra = _rot_planes(pa[:, 3:7])
-    Rc = _rot_planes(pc[:, 3:7])
-    # M = Rc^T Ra;  u = Rc^T (ta - tc)
-    M = [[(Rc[0][j] * Ra[0][c] + Rc[1][j] * Ra[1][c]
-           + Rc[2][j] * Ra[2][c])[None, :] for c in range(3)]
-         for j in range(3)]
-    dt = [pa[:, i] - pc[:, i] for i in range(3)]
-    u = [(Rc[0][j] * dt[0] + Rc[1][j] * dt[1] + Rc[2][j] * dt[2])[None, :]
-         for j in range(3)]
-
-    d = [consts.d3[j * P:(j + 1) * P] for j in range(3)]      # 3 x (P, N)
-    q = [M[j][0] * d[0] + M[j][1] * d[1] + M[j][2] * d[2] + rho * u[j]
-         for j in range(3)]
-
-    ux0, uy0, Jpi0, Jpi1 = camera_slab.project_slab(
-        model, consts.intr_t, q[0], q[1], q[2]
-    )
-
-    def coeff(Jp):
-        a = [Jp[0] * M[0][c] + Jp[1] * M[1][c] + Jp[2] * M[2][c]
-             for c in range(3)]
-        blocks = [rho * a[0], rho * a[1], rho * a[2]]
-        # dphi_a: d x a
-        blocks += [d[1] * a[2] - d[2] * a[1],
-                   d[2] * a[0] - d[0] * a[2],
-                   d[0] * a[1] - d[1] * a[0]]
-        # dt_c: -rho * Jpi
-        blocks += [-rho * Jp[0], -rho * Jp[1], -rho * Jp[2]]
-        # dphi_c: Jpi x q
-        blocks += [Jp[1] * q[2] - Jp[2] * q[1],
-                   Jp[2] * q[0] - Jp[0] * q[2],
-                   Jp[0] * q[1] - Jp[1] * q[0]]
-        # drho: Jpi . u
-        blocks += [Jp[0] * u[0] + Jp[1] * u[1] + Jp[2] * u[2]]
-        return torch.cat(blocks, dim=0)                       # (104, N)
-
-    GA = coeff(Jpi0)
-    GB = coeff(Jpi1)
+    ux0, uy0, GA, GB = camera_slab.warp_slab(
+        model, poses[consts.an], poses[consts.tn],
+        inv_depth[consts.lm][None, :], consts.d3, consts.intr_t)
     fin = torch.isfinite(ux0) & torch.isfinite(uy0)
     far = torch.full_like(ux0, -1e6)
     ux = torch.where(fin, ux0, far)
@@ -485,131 +379,18 @@ def mega_fused(model: str, images, cam_states, inv_depth,
 # ---------------------------------------------------------------------------
 
 
-def _payload(model: str, images, problem: ba.BAProblem, consts: MegaConsts,
-             cfg: ba.BAConfig):
-    """The megakernel's (184, N) payload of a build."""
-    return mega_fused(model, images, problem.cam_states, problem.inv_depth,
-                      consts, float(cfg.huber_delta))
-
-
-def _pair_gram(J2, pg, cc_seg: SegmentTree, K: int, C: int = C):
-    """H_cc (K, K, C, C) from the camera-pair Gram chunks over Jacobian
-    rows ``J2`` (rows, R*(2C+1)) whose 2C+1 columns repeat per residual
-    (the kernel's p-major rows: R = 8, C = 8), summed into the K*K blocks
-    in the fixed order of ``cc_seg``."""
-    rows = J2[pg]                                   # (NCp, Bp, R*(2C+1))
-    rows2 = rows.reshape(rows.shape[0], -1, 2 * C + 1)[..., :2 * C]
-    G2 = torch.bmm(rows2.transpose(1, 2), rows2)    # (NCp, 2C, 2C)
-    blocks = torch.stack(
-        [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
-    ).reshape(-1, C * C)
-    return tree_sum(blocks, cc_seg).reshape(K, K, C, C)
-
-
-def build_mega_chunk(model: str, images, problem: ba.BAProblem,
-                     consts: MegaConsts, cplan: SchurPlan, cfg: ba.BAConfig):
-    """Megakernel + chunk-plan assembly.  Returns ``(cost, neq)`` with
-    neq = (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)."""
-    K = problem.cam_states.pose.shape[0]
-    L = problem.inv_depth.shape[0]
-    out = _payload(model, images, problem, consts, cfg)
-
-    cost = torch.sum(out[ROW_COST])
-    # observation-major, so each gather below reads whole rows; the last
-    # row is the zero row the plans' dummy gathers point at
+def build_mega(model: str, images, problem: ba.BAProblem,
+               consts: MegaConsts, plan, cfg: ba.BAConfig):
+    """Megakernel payload + ``fused.assemble`` over the columns of
+    ``consts`` with ``plan`` (a ``SchurPlan`` or a ``DenseLmSchurPlan``).
+    Returns ``(cost, neq)`` with the contract of ``fused.solve_lam``."""
+    out = mega_fused(model, images, problem.cam_states, problem.inv_depth,
+                     consts, float(cfg.huber_delta))
+    # observation-major, so each gather of the assembly reads whole rows
     outT = out.T.contiguous()                                 # (N, 184)
-    dtype = outT.dtype
-    H_cc = _pair_gram(outT[:, :136], cplan.pg, cplan.cc_seg, K)
-
-    A0 = outT[:, 145:162]                                     # (N, 17)
-    A1 = outT[:, 162:179]
-    pay_l = torch.cat([A0[:, :C], A0[:, 16:17], A1[:, 16:17]], dim=1)
-    red_l = _chunk_sum(pay_l, cplan.lm, L)
-    anchor_v, H_pp, g_p = red_l[:, :C], red_l[:, C], red_l[:, C + 1]
-
-    g_c = (_chunk_sum(A1[:, :C].contiguous(), cplan.gc_a, K)
-           + _chunk_sum(A1[:, C:2 * C].contiguous(), cplan.gc_t, K))
-
-    lm_mask = problem.lm_valid.to(dtype)
-    inv0 = lm_mask / torch.clamp(H_pp, min=cfg.min_inv_depth_hessian)
-    oh = _one_hot(cplan.lm_cam, K, dtype)                     # (NC, B, K)
-    rows_t = A0[:, C:2 * C][cplan.lm.gidx]                    # (NC, B, C)
-    part = torch.bmm(oh.transpose(1, 2), rows_t)              # (NC, K, C)
-    M = tree_sum(part.reshape(part.shape[0], K * C), cplan.lm.seg)
-    oh_a = _one_hot(cplan.anchor_cam_of_lm, K, dtype)         # (L, K)
-    M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
-
-    Mw = M * inv0[:, None]
-    S_corr0 = Mw.T @ M                                        # (K*C, K*C)
-    rhs_corr0 = Mw.T @ g_p
-
-    H_cc_mat = H_cc.permute(0, 2, 1, 3).reshape(K * C, K * C)
-    return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
-
-
-def build_mega2(model: str, images, problem: ba.BAProblem,
-                consts: MegaConsts, plan: MegaPlan, cfg: ba.BAConfig):
-    """Megakernel + dense slot-major assembly.  Returns ``(cost, neq)`` with
-    the contract of ``solve_lam2``: neq = (H_cc_mat, S_corr0, rhs_corr0,
-    g_c, g_p, Ms, inv0, s).
-
-    The reduced system is COMPONENT-major (row c*K + k), ``g_c`` is
-    (C, K), ``Ms`` (L, C*K) is the camera coupling scaled by s = sqrt(inv0)
-    (so S_corr0 = Ms^T Ms and (M dc) inv0 = s (Ms dc)).  The camera lifts
-    are fixed-order sums with the anchor as one extra virtual slot
-    (``plan.m_seg``, ``plan.gc_seg``): exact f32 sums, as the JAX
-    package's compare-and-reduce lifts, never a one-hot product at reduced
-    precision."""
-    K = problem.cam_states.pose.shape[0]
-    L = problem.inv_depth.shape[0]
-    out = _payload(model, images, problem, consts, cfg)
-
-    cost = torch.sum(out[ROW_COST])
-    dtype = out.dtype
-    # observation-major, so the pair gathers read whole rows
-    outT = out.T.contiguous()                                 # (N, 184)
-    H_cc = _pair_gram(outT[:, :136], plan.pg, plan.cc_seg, K)
-    H_cc_mat = H_cc.permute(2, 0, 3, 1).reshape(K * C, K * C)
-
-    # payload rows are the slot rows (empty slots are zero rows)
-    S_ = plan.lm_cam.shape[0]
-    AB = outT[:S_ * L, 145:179]                               # (Os, 34)
-    A0r = AB[:, :17].reshape(S_, L, 17)
-    A1r = AB[:, 17:].reshape(S_, L, 17)
-    red0 = A0r.sum(0)                                         # (L, 17)
-    anchor_v, H_pp = red0[:, :C], red0[:, 16]
-    g_p = A1r[:, :, 16].sum(0)
-
-    inv0 = problem.lm_valid.to(dtype) / torch.clamp(
-        H_pp, min=cfg.min_inv_depth_hessian)
-    s = torch.sqrt(inv0)
-
-    # lifts over S+1 slots, the anchor the extra one; camera K is dropped
-    vt_ext = torch.cat([A0r[:, :, C:2 * C], anchor_v[None]], 0) \
-        * s[None, :, None]                                    # (S+1, L, C)
-    Ms = (tree_sum(vt_ext.reshape(-1, C), plan.m_seg).reshape(L, K, C)
-          .permute(0, 2, 1).reshape(L, C * K))                # c-major columns
-    a1_ext = torch.cat([A1r[:, :, C:2 * C], A1r[:, :, :C].sum(0)[None]], 0)
-    g_c = tree_sum(a1_ext.reshape(-1, C), plan.gc_seg).T     # (C, K)
-
-    S_corr0 = Ms.T @ Ms                                       # (C*K, C*K)
-    rhs_corr0 = (s * g_p) @ Ms
-    return cost, (H_cc_mat, S_corr0, rhs_corr0, g_c, g_p, Ms, inv0, s)
-
-
-def solve_lam2(neq, lam: float, free_cam_mask: torch.Tensor,
-               cfg: ba.BAConfig):
-    """Damped solve and back-substitution for the neq of ``build_mega2``
-    (component-major reduced system).  Returns ``(delta_c (K, C),
-    delta_p (L,))``; NaN deltas where the damped system is not positive
-    definite (``fused.damped_camera_solve``)."""
-    H_cc_mat, S_corr0, rhs_corr0, g_c, g_p, Ms, inv0, s = neq
-    K = free_cam_mask.shape[0]
-    C_ = H_cc_mat.shape[0] // K
-    mask = free_cam_mask.to(g_c.dtype).repeat(C_)             # row c*K + k
-    delta_c = damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask, lam)
-    delta_p = -(g_p * inv0 + s * (Ms @ delta_c)) / (1.0 + lam)
-    return delta_c.reshape(C_, K).T, delta_p
+    return fused.assemble(torch.sum(out[ROW_COST]), outT[:, :136],
+                          outT[:, 145:162], outT[:, 162:179], problem, plan,
+                          cfg)
 
 
 def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
@@ -618,11 +399,11 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     """Megakernel photometric LM solver.
 
     With ``plan_slot`` (the ``DenseLmSchurPlan`` of a problem reordered by
-    ``fused.densify_problem``): the dense slot-major family,
-    ``build_mega_plan`` + ``build_mega2`` + ``solve_lam2``.  Without it:
-    the chunk-plan family over the valid observations sorted by target
-    image, ``build_chunk_mega_plan`` + ``build_mega_chunk`` +
-    ``solve_lam``.
+    ``fused.densify_problem``): the dense slot-major family, the kernel
+    on the slot rows and that plan.  Without it: the chunk-plan family
+    over the valid observations sorted by target image,
+    ``build_chunk_mega_plan``.  Both build with ``build_mega`` and solve
+    with ``fused.solve_lam``.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)``, with
     ``.build(problem, cfg)``, ``.solve_lam(neq, lam, free, cfg)``, the f32
@@ -642,12 +423,13 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     images = images_flat.to(device=device, dtype=torch.float32)
     images = images.reshape(-1, H, W).contiguous()
     if plan_slot is not None:
-        plan_np, rows = build_mega_plan(problem_slot, plan_slot)
-        build_impl, solve_lam_impl = build_mega2, solve_lam2
+        # the slot rows, then the zero column the plan's dummies name
+        valid = _numpy(problem_slot.obs.valid) != 0
+        plan = plan_slot
+        rows = np.r_[np.where(valid, np.arange(valid.size), -1), -1]
     else:
-        plan_np, rows = build_chunk_mega_plan(problem_slot)
-        build_impl, solve_lam_impl = build_mega_chunk, solve_lam
-    plan = plan_to(plan_np, device)
+        plan, rows = build_chunk_mega_plan(problem_slot)
+    plan = fused.plan_to(plan, device)
     consts = make_mega_consts(model, problem_slot, rows)
     stacks = {torch.float32: images}
 
@@ -661,12 +443,12 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
         return stacks[dtype]
 
     def build(problem, cfg: ba.BAConfig):
-        with full_f32():
-            return build_impl(model, stack(cfg), problem, consts, plan, cfg)
+        with fused.full_f32():
+            return build_mega(model, stack(cfg), problem, consts, plan, cfg)
 
     def _solve_lam(neq, lam, free, cfg: ba.BAConfig):
-        with full_f32():
-            return solve_lam_impl(neq, lam, free, cfg)
+        with fused.full_f32():
+            return fused.solve_lam(neq, lam, free, cfg)
 
     def apply_step(prob, dc, dp):
         return prob._replace(cam_states=cam_retract(prob.cam_states, dc),

@@ -1,10 +1,11 @@
-"""Fused Schur-LM bundle-adjustment solver driven by precomputed plans.
+"""Fused Schur-LM bundle-adjustment solver driven by precomputed plans, and
+the one normal-equation assembly and damped solve of every build of the
+port.
 
 Port of ``photometric_bundle_adjustment_tpu/optim/fused.py``, its dense
 one-hot-lifting solver (``_make_dense_fused_ba_solver``): the same problem
 layout (``ba.BAProblem``), LM semantics (damped trust region with
 accept/reject, Huber IRLS, gauge masking) and normal equations.  The
-assembly follows the gather/Gram-chunk plans of ``optim/schur_plan``; the
 Schur complement uses the dense per-landmark coupling matrix M (L, K*C),
 so that
 
@@ -14,9 +15,15 @@ so that
     S(lam) = H_cc + lam diag(H_cc) - S_corr0 / (1 + lam),
     so each LM retry costs one dense Cholesky of the (K*C, K*C) system.
 
-Two plan types, two builds: a ``SchurPlan`` (any observation order,
-``plan_for_problem``) runs ``build_chunk``; a ``DenseLmSchurPlan`` (the
-slot-major order of ``densify_problem``) runs ``build_dense``.  Plans hold
+A build produces per-observation payload rows, the Huber-weighted
+Jacobian rows and the thin couplings A0 = J^T J_rho, A1 = J^T r, and hands
+them to ``assemble``: ``make_fused_ba_solver`` from a batched rj
+function, ``ops/pba_mega`` from the photometric megakernel and
+``ops/geo_mega`` from its geometric planes.  ``assemble`` follows the plan
+type: a ``SchurPlan`` (any observation order, ``plan_for_problem``) sums
+through chunked segment plans, a ``DenseLmSchurPlan`` (the slot-major order
+of ``densify_problem``) by reshapes over the slot axis.  Both give the
+camera-major system (row k*C + c) that ``solve_lam`` solves.  Plans hold
 int64 tensors on the problem's device, where ``optim/schur_plan_torch``
 builds them.
 
@@ -36,7 +43,6 @@ from photometric_bundle_adjustment_tpu_torch.optim.ba import full_f32
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     ChunkPlan,
     DenseLmSchurPlan,
-    SchurPlan,
     SegmentTree,
 )
 
@@ -69,7 +75,7 @@ def densify_problem(problem: ba.BAProblem, **kwargs):
     Returns ``(problem2, DenseLmSchurPlan)``: observation row ``s*L + l``
     of ``problem2`` is the s-th observation of landmark l (padding slots
     have valid=0 and copy row 0's constants), which turns every
-    landmark-axis reduction of ``build_dense`` into a reshape and a sum
+    landmark-axis reduction of ``assemble`` into a reshape and a sum
     over the leading slot axis.  Camera and landmark states are untouched;
     only the observation order differs.  ``kwargs`` go to
     ``schur_plan_torch.build_dense_lm_plan``."""
@@ -137,13 +143,16 @@ def _one_hot(idx, K: int, dtype):
     return (idx[..., None] == torch.arange(K, device=idx.device)).to(dtype)
 
 
-def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,
-                   K: int, C: int):
-    """H_cc (K*C, K*C) from camera-pair Gram chunks: the 2C x 2C Gram of
-    each chunk's rows holds [Haa Hac; Hca Hcc] of its camera pair, summed
-    into the K*K blocks by ``cc_seg`` (the plan's ``cc_rows4``)."""
-    rows = J[pg]                                   # (NCp, Bp, R, 2C+1)
-    rows2 = rows[..., : 2 * C].reshape(rows.shape[0], -1, 2 * C)
+def pair_gram(J_rows: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,
+              K: int, C: int) -> torch.Tensor:
+    """H_cc (K*C, K*C), camera-major, from camera-pair Gram chunks over
+    Jacobian rows ``J_rows`` (N, R*(2C+1)) whose 2C+1 columns repeat per
+    residual: the 2C x 2C Gram of each chunk's rows (a strided view of
+    the gathered rows, no copy) holds [Haa Hac; Hca Hcc] of its camera
+    pair, summed into the K*K blocks in the fixed order of ``cc_seg``
+    (the plan's ``cc_rows4``)."""
+    rows = J_rows[pg]                              # (NCp, Bp, R*(2C+1))
+    rows2 = rows.reshape(rows.shape[0], -1, 2 * C + 1)[..., :2 * C]
     G2 = torch.bmm(rows2.transpose(1, 2), rows2)   # (NCp, 2C, 2C)
     blocks = torch.stack(
         [G2[:, :C, :C], G2[:, :C, C:], G2[:, C:, :C], G2[:, C:, C:]], dim=1
@@ -152,12 +161,64 @@ def _cam_cc_blocks(J: torch.Tensor, pg: torch.Tensor, cc_seg: SegmentTree,
     return H_cc.permute(0, 2, 1, 3).reshape(K * C, K * C)
 
 
-def _schur_terms(M, inv0, g_p, skip_gram: bool = False):
-    """S_corr0 = Mw^T M and rhs_corr0 = Mw^T g_p, Mw = diag(inv0) M, in
-    full f32 (the caller's ``full_f32``); S_corr0 is None with
-    ``skip_gram`` (``BAConfig.skip_schur_gram``)."""
+def assemble(cost, J_rows: torch.Tensor, A0: torch.Tensor, A1: torch.Tensor,
+             problem: ba.BAProblem, plan, cfg: ba.BAConfig):
+    """The normal equations of one build from its payload rows.
+
+    ``J_rows`` (N, R*(2C+1)) are the sqrt(Huber weight)-scaled Jacobian
+    rows of the observation rows the plan indexes, ``A0 = J^T J_rho`` and
+    ``A1 = J^T r`` (N, 2C+1) their thin couplings, columns in W order
+    [anchor tangent (C), target tangent (C), inverse depth].  The row
+    after the plan's observation rows, which its dummy entries name, is
+    zero.
+    With a ``SchurPlan`` the landmark reductions and g_c are chunked
+    segment sums and M the one-hot lift of each landmark chunk's target
+    couplings plus the anchor's; with a ``DenseLmSchurPlan`` (rows s*L +
+    l) the landmark reductions are sums over the slot axis, g_c and M
+    fixed-order sums by camera (``plan.gc_seg``, ``plan.m_seg``; padding
+    rows carry camera K, which is dropped).
+
+    Returns ``(cost, neq)`` with neq = (H_cc_mat, S_corr0, rhs_corr0,
+    H_pp, g_c (K, C), g_p, M (L, K*C), inv0), the camera-major contract of
+    ``solve_lam``; S_corr0 is None with ``cfg.skip_schur_gram``.  Call it
+    under ``full_f32``."""
+    K = ba.num_cams(problem)
+    L = problem.inv_depth.shape[0]
+    C = (A0.shape[1] - 1) // 2
+    dtype = A0.dtype
+    H_cc_mat = pair_gram(J_rows, plan.pg, plan.cc_seg, K, C)
+    if isinstance(plan, DenseLmSchurPlan):
+        S_ = plan.lm_cam.shape[0]
+        A0s = A0[: S_ * L].reshape(S_, L, 2 * C + 1)
+        red0 = A0s.sum(0)                                     # (L, W)
+        anchor_v, H_pp = red0[:, :C], red0[:, 2 * C]
+        g_p = A1[: S_ * L, 2 * C].reshape(S_, L).sum(0)
+        Av = A1[: S_ * L]
+        g_c = tree_sum(torch.cat([Av[:, :C], Av[:, C:2 * C]]), plan.gc_seg)
+        M = tree_sum(torch.cat([A0s[:, :, C:2 * C].reshape(-1, C), anchor_v]),
+                     plan.m_seg).reshape(L, K * C)
+    else:
+        # landmark reductions: anchor-merged Hap, H_pp, g_p in one pass
+        pay_l = torch.cat([A0[:, :C], A0[:, 2 * C:], A1[:, 2 * C:]], dim=1)
+        red_l = _chunk_sum(pay_l, plan.lm, L)
+        anchor_v, H_pp, g_p = red_l[:, :C], red_l[:, C], red_l[:, C + 1]
+        g_c = (_chunk_sum(A1[:, :C], plan.gc_a, K)
+               + _chunk_sum(A1[:, C:2 * C], plan.gc_t, K))
+        # M (L, K*C): each landmark's target couplings lifted to their
+        # camera's column block (one-hot products of 0/1, exact), plus the
+        # anchor coupling
+        oh = _one_hot(plan.lm_cam, K, dtype)                  # (NC, B, K)
+        rows_t = A0[:, C:2 * C][plan.lm.gidx]                  # (NC, B, C)
+        part = torch.bmm(oh.transpose(1, 2), rows_t)          # (NC, K, C)
+        M = tree_sum(part.reshape(-1, K * C), plan.lm.seg)
+        oh_a = _one_hot(plan.anchor_cam_of_lm, K, dtype)      # (L, K)
+        M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
+    inv0 = problem.lm_valid.to(dtype) / torch.clamp(
+        H_pp, min=cfg.min_inv_depth_hessian)
+    # S_corr0 = Mw^T M and rhs_corr0 = Mw^T g_p, Mw = diag(inv0) M
     Mw = M * inv0[:, None]
-    return (None if skip_gram else Mw.T @ M), Mw.T @ g_p
+    S_corr0 = None if cfg.skip_schur_gram else Mw.T @ M
+    return cost, (H_cc_mat, S_corr0, Mw.T @ g_p, H_pp, g_c, g_p, M, inv0)
 
 
 def damped_camera_solve(H_cc_mat, S_corr0, rhs_corr0, g_c, mask,
@@ -253,81 +314,20 @@ def make_fused_ba_solver(residual_fn: Callable, cam_retract: Callable,
         sw = torch.sqrt(w)
         return cost, J * sw[:, None, None], r * sw[:, None]
 
-    def build_chunk(problem: ba.BAProblem, plan: SchurPlan,
-                    cfg: ba.BAConfig):
-        """Normal-equation assembly from the chunked segment-sum plans
-        (any observation order)."""
-        K = ba.num_cams(problem)
-        L = problem.inv_depth.shape[0]
-        cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
-        dtype = Jsw.dtype
-        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_seg, K, C)
-
-        # thin couplings A[o] = Jsw[o]^T [swJp, swr]: (O', 2C+1, 2)
-        right = torch.stack([Jsw[:, :, 2 * C], rsw], dim=-1)
-        A = torch.einsum("ori,ors->ois", Jsw, right)
-
-        # landmark reductions: anchor-merged Hap, H_pp, g_p in one pass
-        pay_l = torch.cat([A[:, :C, 0], A[:, 2 * C:, 0], A[:, 2 * C:, 1]],
-                          dim=1)
-        red_l = _chunk_sum(pay_l, plan.lm, L)
-        anchor_v, H_pp, g_p = red_l[:, :C], red_l[:, C], red_l[:, C + 1]
-        g_c = (_chunk_sum(A[:, :C, 1], plan.gc_a, K)
-               + _chunk_sum(A[:, C:2 * C, 1], plan.gc_t, K))
-
-        inv0 = problem.lm_valid.to(dtype) / torch.clamp(
-            H_pp, min=cfg.min_inv_depth_hessian)
-        # M (L, K*C): each landmark's target couplings lifted to their
-        # camera's column block, plus the anchor coupling
-        oh = _one_hot(plan.lm_cam, K, dtype)                  # (NC, B, K)
-        rows_t = A[:, C:2 * C, 0][plan.lm.gidx]                # (NC, B, C)
-        part = torch.bmm(oh.transpose(1, 2), rows_t)          # (NC, K, C)
-        M = tree_sum(part.reshape(-1, K * C), plan.lm.seg)
-        oh_a = _one_hot(plan.anchor_cam_of_lm, K, dtype)      # (L, K)
-        M = M + (oh_a[:, :, None] * anchor_v[:, None, :]).reshape(L, K * C)
-
-        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p, cfg.skip_schur_gram)
-        return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
-
-    def build_dense(problem: ba.BAProblem, plan: DenseLmSchurPlan,
-                    cfg: ba.BAConfig):
-        """Normal-equation assembly for the slot-major layout of
-        ``densify_problem``: landmark reductions are reshapes to (S, L, .)
-        and sums over the slot axis; g_c and M are fixed-order sums by
-        camera (``plan.gc_seg``, ``plan.m_seg``; padding rows carry camera
-        K, which is dropped)."""
-        K = ba.num_cams(problem)
-        L = problem.inv_depth.shape[0]
-        S_ = plan.lm_cam.shape[0]
-        cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
-        dtype = Jsw.dtype
-        H_cc_mat = _cam_cc_blocks(Jsw, plan.pg, plan.cc_seg, K, C)
-
-        # thin couplings A0 = J^T J_rho, A1 = J^T r: (O', 2C+1) each
-        A0 = torch.einsum("orw,or->ow", Jsw, Jsw[:, :, 2 * C])
-        A1 = torch.einsum("orw,or->ow", Jsw, rsw)
-        A0s = A0[: S_ * L].reshape(S_, L, W)
-        red0 = A0s.sum(0)                                     # (L, W)
-        anchor_v, H_pp = red0[:, :C], red0[:, 2 * C]
-        g_p = A1[: S_ * L, 2 * C].reshape(S_, L).sum(0)
-
-        Av = A1[: S_ * L]
-        g_c = tree_sum(torch.cat([Av[:, :C], Av[:, C:2 * C]]), plan.gc_seg)
-
-        inv0 = problem.lm_valid.to(dtype) / torch.clamp(
-            H_pp, min=cfg.min_inv_depth_hessian)
-        M = tree_sum(torch.cat([A0s[:, :, C:2 * C].reshape(-1, C), anchor_v]),
-                     plan.m_seg).reshape(L, K * C)
-
-        S_corr0, rhs_corr0 = _schur_terms(M, inv0, g_p, cfg.skip_schur_gram)
-        return cost, (H_cc_mat, S_corr0, rhs_corr0, H_pp, g_c, g_p, M, inv0)
-
     def build(problem: ba.BAProblem, plan, cfg: ba.BAConfig):
         """One normal-equation assembly; everything lambda-independent."""
         with full_f32():
+            cost, Jsw, rsw = _scaled_jacobians(problem, cfg)
             if isinstance(plan, DenseLmSchurPlan):
-                return build_dense(problem, plan, cfg)
-            return build_chunk(problem, plan, cfg)
+                A0 = torch.einsum("orw,or->ow", Jsw, Jsw[:, :, 2 * C])
+                A1 = torch.einsum("orw,or->ow", Jsw, rsw)
+            else:
+                # both couplings from one product: (O', 2C+1, 2)
+                right = torch.stack([Jsw[:, :, 2 * C], rsw], dim=-1)
+                A = torch.einsum("ori,ors->ois", Jsw, right)
+                A0, A1 = A[..., 0], A[..., 1]
+            return assemble(cost, Jsw.reshape(Jsw.shape[0], -1), A0, A1,
+                            problem, plan, cfg)
 
     def _solve_lam(neq, lam, free, cfg: ba.BAConfig):
         with full_f32():

@@ -18,7 +18,7 @@ the kernel's bf16 tier.  It warms up and then, at the initial state:
     GPU, the host clock on the CPU): the whole build (the megakernel, which
     computes the warp inside it, and the family's assembly), the megakernel
     alone, the assembly (the build less the kernel) and the damped solve
-    (``solve_lam`` or ``solve_lam2``); for the chunk family also the
+    (``fused.solve_lam``); for the chunk family also the
     fixed-order sums of its plan against the scatter-adds they replace
     (``fixed_order_sums``);
   * runs ``--tries`` LM tries (damped solve, retraction, build at the trial
@@ -381,10 +381,9 @@ def profile_geo(args, device: torch.device) -> dict:
         return time_ms(fn, device, args.reps)
 
     def gram():
+        M = neq[6]
         with fused.full_f32():
-            if plan_slot is None:
-                return fused._schur_terms(neq[6], neq[7], neq[5])
-            return neq[5].T @ neq[5]
+            return (M * neq[7][:, None]).T @ M       # S_corr0 of the build
 
     def damped_system():
         H = neq[0]

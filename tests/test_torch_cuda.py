@@ -594,15 +594,15 @@ def _geo_builds(device, dtype):
     fs = geometric_ba.make_fused_solver("pinhole")
     cfg = ba.BAConfig()
     return {
-        "build_geo": lambda: chunk.build(problem, cfg),
-        "build_geo_dense2": lambda: dense.build(prob_d, cfg),
+        "geo_chunk": lambda: chunk.build(problem, cfg),
+        "geo_dense": lambda: dense.build(prob_d, cfg),
         "fused_chunk": lambda: fs.build(problem, plan, cfg),
         "fused_dense": lambda: fs.build(prob_d, plan_d, cfg),
     }
 
 
-@pytest.mark.parametrize("build", ["build_geo", "build_geo_dense2",
-                                   "fused_chunk", "fused_dense"])
+@pytest.mark.parametrize("build", ["geo_chunk", "geo_dense", "fused_chunk",
+                                   "fused_dense"])
 def test_geo_builds_repeat_bit_for_bit_and_match_cpu(cuda, build):
     """Two geometric builds on the card are bit-equal, and agree with the
     CPU's f64 build of the same problem at the port's f32 tolerances (cost

@@ -4,14 +4,19 @@ reference, on ``synth_ba_problem`` at toy size.
 
 The builds are held to the JAX builds in f32 at the JAX package's own
 tolerances (tests/test_geo_mega.py:31-50: cost rtol 1e-5, pieces atol
-2e-4 x max|ref| with rtol 1e-3), ``solve_lam2``'s deltas on the same
-normal equations at 2e-3 x max|ref| (f32), full solves at final cost rtol
-2e-4.  In f64 every build of the port (``build_geo``,
-``build_geo_dense2`` and the fused chunk and dense builds) sums to what
-``make_ba_step``'s ``index_add_`` gives, to 1e-10 relative.
+2e-4 x max|ref| with rtol 1e-3), the JAX dense build made camera-major
+(``_camera_major``: the JAX dense family solves a component-major system
+with the coupling scaled by sqrt(inv0)); the port's damped solve on those
+normal equations against the JAX ``solve_lam2``'s deltas at 2e-3 x
+max|ref| (f32), full solves at final cost rtol 2e-4.  In f64 every build
+of the port (``build_geo`` with either plan family and the fused chunk and
+dense builds) sums to what ``make_ba_step``'s ``index_add_`` gives, to
+1e-10 relative.
 """
 
+import ast
 import inspect
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +40,7 @@ K, L, S = 12, 96, 4
 C = 6
 CHUNK_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "H_pp", "g_c", "g_p", "M",
                "inv0"]
-DENSE_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "g_c", "g_p", "Ms", "inv0",
-               "s"]
+OPS = pathlib.Path(tgm.__file__).parent
 
 
 def _np(x):
@@ -86,34 +90,54 @@ def _dense_pair(jp, tp):
             tgm.make_geo_solver("pinhole", tpd, tplan, device="cpu"), tpd)
 
 
+def _camera_major(neq):
+    """The JAX dense build's normal equations (H_cc, S_corr0, rhs_corr0
+    over rows c*K + k, g_c (C, K), g_p, Ms_p = (sqrt(inv0) M)^T (C*K, L),
+    inv0, s) as the port's camera-major pieces, numpy, by name (no H_pp:
+    the JAX build does not return it)."""
+    H, S, rhs, g_c, g_p, Ms_p, inv0, s = (np.asarray(a) for a in neq)
+
+    def rows(X):
+        return X.reshape(C, K, C, K).transpose(1, 0, 3, 2).reshape(K * C, -1)
+
+    M = (Ms_p.T / s[:, None]).reshape(L, C, K).transpose(0, 2, 1)
+    return dict(H_cc=rows(H), S_corr0=rows(S),
+                rhs_corr0=rhs.reshape(C, K).T.reshape(-1), g_c=g_c.T,
+                g_p=g_p, M=M.reshape(L, K * C), inv0=inv0)
+
+
 def test_build_geo_dense2_matches_jax(f32):
+    """The dense family's build against the JAX dense build, made
+    camera-major."""
     jsolve, jpd, tsolve, tpd = _dense_pair(*f32)
     ref_cost, ref = jsolve.build(jpd, jba.BAConfig(huber_delta=1.0))
     cost, neq = tsolve.build(tpd, tba.BAConfig())
     assert (np.asarray(jpd.obs.valid) == 0).any()
     np.testing.assert_allclose(float(cost), float(ref_cost), rtol=1e-5)
-    for name, a, b in zip(DENSE_NAMES, neq, ref):
-        if name == "Ms":        # the port's (L, C*K), the JAX (C*K, L)
-            a = a.T
-        _close_scaled(a, b, 2e-4, rtol=1e-3, msg=name)
+    got = dict(zip(CHUNK_NAMES, neq))
+    for name, b in _camera_major(ref).items():
+        assert got[name].shape == b.shape, name
+        _close_scaled(got[name], b, 2e-4, rtol=1e-3, msg=name)
 
 
 @pytest.mark.parametrize("fixed", [(0, 1), (0, 3)])
 def test_solve_lam2_matches_jax(f32, fixed):
-    """The damped solve of ``solve_lam2`` on the JAX build's normal
-    equations, with the gauge on cameras {0, 1} and {0, 3} (a mix-up of
-    camera- and component-major rows cannot pass both)."""
-    jsolve, jpd, _, tpd = _dense_pair(*f32)
+    """The port's damped solve (``fused.solve_lam``) on the JAX dense
+    build's normal equations made camera-major, against the JAX
+    ``solve_lam2``, with the gauge on cameras {0, 1} and {0, 3} (a mix-up
+    of camera- and component-major rows cannot pass both)."""
+    jsolve, jpd, tsolve, _ = _dense_pair(*f32)
     _, ref = jsolve.build(jpd, jba.BAConfig(huber_delta=1.0))
-    neq = tuple(interop.array_from_numpy(a, "cpu") for a in ref)
-    neq = neq[:5] + (neq[5].T,) + neq[6:]
+    cm = {k: interop.array_from_numpy(v, "cpu")
+          for k, v in _camera_major(ref).items()}
+    neq = tuple(cm.get(name) for name in CHUNK_NAMES)       # H_pp: None
     free = np.ones(K, bool)
     free[list(fixed)] = False
     for lam in (1e-4, 1e-1):
         dc_j, dp_j = jgm.solve_lam2(ref, jnp.asarray(lam, jnp.float32),
                                     jnp.asarray(free), jba.BAConfig())
-        dc, dp = tgm.solve_lam2(neq, lam, torch.as_tensor(free),
-                                tba.BAConfig())
+        dc, dp = tsolve.solve_lam(neq, lam, torch.as_tensor(free),
+                                  tba.BAConfig())
         assert dc.shape == (K, C)
         assert (dc[torch.as_tensor(~free)] == 0).all()
         _close_scaled(dc, dc_j, 2e-3, msg=f"delta_c at lambda {lam}")
@@ -154,19 +178,12 @@ def _scatter_reference(tp):
                 M=H_cp.permute(1, 0, 2).reshape(L, K * C))
 
 
-def _as_camera_major(neq):
-    """A dense build's (component-major) pieces as the chunk contract's:
-    H_cc (K*C, K*C) camera-major, g_c (K, C), M = Ms / s (L, K*C)."""
-    H_cc, _, _, g_c, g_p, Ms, inv0, s = neq
-    H = H_cc.reshape(C, K, C, K).permute(1, 0, 3, 2).reshape(K * C, K * C)
-    M = (Ms / s[:, None]).reshape(L, C, K).permute(0, 2, 1).reshape(L, K * C)
-    return dict(H_cc=H, g_c=g_c.T, g_p=g_p, M=M, H_pp=1.0 / inv0)
-
-
 @pytest.mark.parametrize("build", ["build_geo", "build_geo_dense2",
                                    "fused_chunk", "fused_dense"])
 def test_fixed_order_sums_equal_scatter_add(build):
-    """Every plan-based build sums to the scatter-add reference (f64)."""
+    """Every plan-based build sums to the scatter-add reference (f64):
+    ``build_geo`` with the chunk plan and with the dense plan
+    (``build_geo_dense2``), and the fused solver's two builds."""
     _, tp = _problem("f64", seed=2, drop=True)
     ref = _scatter_reference(tp)
     cfg = tba.BAConfig()
@@ -182,8 +199,7 @@ def test_fixed_order_sums_equal_scatter_add(build):
                                     None if build == "build_geo" else plan,
                                     device="cpu")
         cost, neq = solve.build(prob, cfg)
-        got = (dict(zip(CHUNK_NAMES, neq)) if build == "build_geo"
-               else _as_camera_major(neq))
+        got = dict(zip(CHUNK_NAMES, neq))
     np.testing.assert_allclose(float(cost), float(ref["cost"]), rtol=1e-12)
     for name in ("H_cc", "H_pp", "g_c", "g_p", "M"):
         _close_scaled(got[name], ref[name], 1e-10, rtol=1e-10,
@@ -191,15 +207,40 @@ def test_fixed_order_sums_equal_scatter_add(build):
 
 
 @pytest.mark.parametrize("fn", [
-    tgm.build_geo, tgm.build_geo_dense2, tfused.make_fused_ba_solver,
-    tfused.tree_sum, tfused._chunk_sum, tfused._cam_cc_blocks,
-    pba_mega._pair_gram, pba_mega.build_mega_chunk, pba_mega.build_mega2])
+    tgm.build_geo, tgm._geo_payload, tfused.make_fused_ba_solver,
+    tfused.tree_sum, tfused._chunk_sum, tfused.pair_gram, tfused.assemble,
+    pba_mega.build_mega, pba_mega.mega_rj_reference])
 def test_builds_have_no_scatter_add(fn):
     """No build of the port sums with atomics on the card: no
     ``index_add_``, ``scatter_add_`` or accumulating ``index_put_``."""
     src = inspect.getsource(fn)
     for word in ("index_add", "scatter_add", "index_put", "accumulate="):
         assert word not in src, f"{fn.__name__} uses {word}"
+
+
+def test_ops_use_only_the_public_assembly():
+    """The builds of ``ops/`` reach the assembly through ``optim/fused``'s
+    public names: ``geo_mega`` imports nothing from its photometric
+    sibling ``pba_mega``, and no module of ``ops/`` imports or reads a
+    ``_``-prefixed name of ``optim/fused``."""
+    for path in sorted(OPS.glob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names = [a.name for a in node.names]
+                if path.name == "geo_mega.py":
+                    assert not node.module.endswith("pba_mega"), path.name
+                    assert "pba_mega" not in names, path.name
+                if node.module.endswith("optim.fused"):
+                    private = [n for n in names if n.startswith("_")]
+                    assert not private, f"{path.name} imports {private}"
+            if (isinstance(node, ast.Attribute)
+                    and isinstance(node.value, ast.Name)):
+                if path.name == "geo_mega.py":
+                    assert node.value.id != "pba_mega", path.name
+                if node.value.id == "fused":
+                    assert not node.attr.startswith("_"), \
+                        f"{path.name} reads fused.{node.attr}"
 
 
 def test_dense_equals_chunk_family(f32):

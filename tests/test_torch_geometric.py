@@ -224,14 +224,18 @@ def test_bundle_adjustment_matches_jax(branch):
                                              ("pinhole", False)])
 def test_bundle_adjustment_converges_to_ground_truth(model, use_fused):
     """Zero pixel noise: the perturbed scene converges back to ground truth
-    (tests/test_geometric_ba.py:70-92), gauge fixed by two cameras."""
+    (tests/test_geometric_ba.py:70-92), gauge fixed by two cameras; through
+    ``bundle_adjustment``, or with ``use_fused=False`` the scatter-add
+    reference solver ``make_solver``."""
     problem, poses_gt, rho_gt = tsyn.synth_ba_problem(
         model, K=5, L=60, obs_per_landmark=3, seed=4, pose_noise=0.02,
         depth_noise=0.05, device="cpu")
     cfg = tba.BAConfig(max_iterations=30, huber_delta=1.0,
                        function_tolerance=1e-16)
-    solved, res = tgeo.bundle_adjustment(problem, model, cfg,
-                                         use_fused=use_fused)
+    if use_fused is False:
+        solved, res = tgeo.make_solver(model)(problem, cfg)
+    else:
+        solved, res = tgeo.bundle_adjustment(problem, model, cfg)
     assert float(res.cost) < 1e-14, float(res.cost)
     err = tse3.log(tse3.compose(tse3.inverse(poses_gt), solved.cam_states))
     assert float(torch.linalg.norm(err, dim=-1).max()) < 1e-7

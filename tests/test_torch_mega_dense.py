@@ -1,6 +1,10 @@
-"""Parity of the port's dense slot-major megakernel family (build_mega_plan,
-build_mega2, solve_lam2) and of the kernel's bf16 tier with the JAX
-package, on the same numpy-seeded problems.
+"""Parity of the port's dense slot-major megakernel family (the kernel on
+the slot rows, ``fused.assemble`` and ``fused.solve_lam`` on the
+``DenseLmSchurPlan``) and of the kernel's bf16 tier with the JAX package,
+on the same numpy-seeded problems.  The JAX dense family builds and
+solves a component-major system (row c*K + k) with the coupling scaled by
+sqrt(inv0); ``_camera_major`` brings its normal equations into the port's
+camera-major contract before they are compared or solved.
 
 The JAX side runs its Pallas kernel in interpret mode on the CPU, as
 tests/test_pba_mega.py does; the port runs the kernel's plain PyTorch
@@ -38,8 +42,8 @@ from scripts.profile_pba import build_euroc_scale_pba
 torch.set_num_threads(1)
 
 HUBER = 9.0
-NEQ2_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "g_c", "g_p", "Ms", "inv0",
-              "s"]
+NEQ_NAMES = ["H_cc", "S_corr0", "rhs_corr0", "H_pp", "g_c", "g_p", "M",
+             "inv0"]
 PARITY = (2e-4, 3e-3, 2e-3)       # cost rtol, pieces atol x max|ref|, rtol
 BF16_TIER = (2e-2, 3e-2, 5e-2)
 
@@ -53,6 +57,40 @@ def _close_scaled(port, ref, frac, rtol=0.0, msg=""):
     scale = max(np.abs(ref).max(), 1e-6)
     np.testing.assert_allclose(port, ref, atol=frac * scale, rtol=rtol,
                                err_msg=msg)
+
+
+def _camera_major(neq, K):
+    """The JAX dense family's normal equations (H_cc, S_corr0, rhs_corr0
+    over rows c*K + k, g_c (C, K), g_p, Ms = sqrt(inv0) M (L, C*K), inv0,
+    s = sqrt(inv0)) in the port's camera-major contract (H_cc, S_corr0,
+    rhs_corr0, H_pp, g_c (K, C), g_p, M (L, K*C), inv0), as numpy; H_pp
+    is None (the JAX build does not return it), M's rows of landmarks with
+    inv0 = 0 are zero."""
+    H, S, rhs, g_c, g_p, Ms, inv0, s = (np.asarray(a) for a in neq)
+    C = g_c.shape[0]
+
+    def rows(X):
+        return X.reshape(C, K, C, K).transpose(1, 0, 3, 2).reshape(K * C, -1)
+
+    M = np.where(s[:, None] > 0, Ms / np.where(s > 0, s, 1)[:, None], 0)
+    M = M.reshape(-1, C, K).transpose(0, 2, 1).reshape(-1, K * C)
+    return (rows(H), rows(S), rhs.reshape(C, K).T.reshape(-1), None, g_c.T,
+            g_p, M, inv0)
+
+
+def _close_neq(neq, ref, frac, rtol, label):
+    """Each piece of the port's ``neq`` against the camera-major ``ref``
+    (``_camera_major``; M compared on the rows of landmarks with inv0 > 0,
+    the only rows a solve reads)."""
+    live = _np(neq[7]) > 0
+    for name, a, b in zip(NEQ_NAMES, neq, ref):
+        if b is None:
+            continue
+        a, b = _np(a), _np(b)
+        if name == "M":
+            a, b = a[live], b[live]
+        assert a.shape == b.shape, name
+        _close_scaled(a, b, frac, rtol=rtol, msg=f"{label}: {name}")
 
 
 def _cfgs(**kw):
@@ -84,26 +122,32 @@ def case():
 
 
 def test_dense_plan_tables_identical(case):
-    """The port's dense plan is the JAX plan with group rows mapped to slot
-    rows (the JAX layout's ``order``): the kernel's columns are the slot
-    rows themselves, empty slots zero columns."""
+    """The dense family's columns are the slot rows (empty slots zero
+    columns) and one zero column at L*S, where the dummies of the port's
+    ``DenseLmSchurPlan`` point; its pair chunks name the JAX mega plan's
+    rows mapped to slot rows (the JAX layout's ``order``)."""
     jplan, jmeta, jidx = jmega.build_mega_plan(case.jprob_d, case.jplan_d,
                                                case.K)
-    tplan, rows = tmega.build_mega_plan(case.tprob_d, case.tplan_d)
+    tplan, consts = case.tsolve.plan, case.tsolve.consts
     valid = _np(case.tprob_d.obs.valid) != 0
     Os = valid.size
     assert not valid.all()            # the layout has empty slots
-    np.testing.assert_array_equal(rows, np.where(valid, np.arange(Os), -1))
+    col = _np(consts.timg) >= 0
+    np.testing.assert_array_equal(col, np.r_[valid, False])
+    o = case.tprob_d.obs
+    for got, want in ((consts.an, o.anchor_cam), (consts.tn, o.target_cam),
+                      (consts.lm, o.landmark)):
+        np.testing.assert_array_equal(_np(got)[:Os][valid], _np(want)[valid])
     # the pair chunks name the same slot rows; each package's dummies
-    # gather a zero row (JAX: its padding row zrow, the port: an empty
-    # slot).  The JAX package pads the chunk count to a multiple of 64
-    # with dummy chunks; the port's count is exact
-    n = tplan.pg.shape[0]
+    # gather a zero row (JAX: its padding row zrow, the port: column L*S).
+    # The JAX package pads the chunk count to a multiple of 64 with dummy
+    # chunks; the port's count is exact
+    tpg = _np(tplan.pg)
+    n = tpg.shape[0]
     j_slot = np.r_[jmeta["order"], -1]
     jpg = j_slot[np.asarray(jplan.pg)]
-    tpg = np.where(valid[np.clip(tplan.pg, 0, Os - 1)], tplan.pg, -1)
-    np.testing.assert_array_equal(tpg, jpg[:n])
-    assert (rows[tplan.pg[tpg < 0]] == -1).all()
+    np.testing.assert_array_equal(np.where(col[tpg], tpg, -1), jpg[:n])
+    assert (tpg[~col[tpg]] == Os).all()
     assert (jpg[n:] == -1).all()
     assert (np.asarray(jplan.cc_rows4)[n:] == case.K ** 2).all()
     for name in ("lm_cam", "anchor_cam_of_lm"):
@@ -114,28 +158,29 @@ def test_dense_plan_tables_identical(case):
     order = jmeta["order"]
     np.testing.assert_array_equal(np.sort(order[order >= 0]),
                                   np.flatnonzero(valid))
-    assert jmeta["Og"] > rows.size
-    consts = tmega.make_mega_consts("pinhole", case.tprob_d, rows)
-    assert consts.d3.shape == (3 * tmega.P, Os)
-    np.testing.assert_array_equal(_np(consts.timg) < 0, ~valid)
+    assert jmeta["Og"] > Os + 1
+    assert consts.d3.shape == (3 * tmega.P, Os + 1)
 
 
 def test_build_mega2_matches_jax(case):
+    """The dense family's build against the JAX dense build, made
+    camera-major."""
     cfg_j, cfg_t = _cfgs(max_iterations=1)
     ref_cost, ref_neq = case.jsolve.build(case.jprob_d, cfg_j)
     cost, neq = case.tsolve.build(case.tprob_d, cfg_t)
     np.testing.assert_allclose(float(cost), float(ref_cost), rtol=PARITY[0])
-    assert neq[3].shape == (tmega.C, case.K)          # g_c component-major
-    for name, a, b in zip(NEQ2_NAMES, neq, ref_neq):
-        assert a.shape == b.shape, name
-        _close_scaled(a, b, PARITY[1], rtol=PARITY[2], msg=f"neq piece {name}")
+    assert neq[4].shape == (case.K, tmega.C)          # g_c camera-major
+    _close_neq(neq, _camera_major(ref_neq, case.K), PARITY[1], PARITY[2],
+               "neq")
 
 
 @pytest.mark.parametrize("fixed", [(0, 1), (0, 3)])
 def test_solve_lam2_matches_jax(case, fixed):
-    """The JAX normal equations through both packages' solve_lam2.  A fixed
-    camera that is not the last one masks different rows in the
-    component-major (tile) and camera-major (repeat) orders."""
+    """The JAX normal equations, made camera-major, through the dense
+    family's damped solve (``fused.solve_lam``) against the JAX
+    ``solve_lam2``'s deltas.  A fixed camera that is not the last one
+    masks different rows in the component-major (tile) and camera-major
+    (repeat) orders."""
     cfg_j, cfg_t = _cfgs(max_iterations=1)
     _, ref_neq = case.jsolve.build(case.jprob_d, cfg_j)
     free = np.ones(case.K, bool)
@@ -143,7 +188,8 @@ def test_solve_lam2_matches_jax(case, fixed):
     with jax.default_matmul_precision("float32"):
         dc_ref, dp_ref = jmega.solve_lam2(
             ref_neq, jnp.asarray(1e-4, jnp.float32), jnp.asarray(free), cfg_j)
-    neq_t = tuple(interop.array_from_numpy(a, "cpu") for a in ref_neq)
+    neq_t = tuple(None if a is None else interop.array_from_numpy(a, "cpu")
+                  for a in _camera_major(ref_neq, case.K))
     dc, dp = case.tsolve.solve_lam(neq_t, 1e-4, torch.as_tensor(free), cfg_t)
     assert dc.shape == (case.K, tmega.C)
     assert (dc[torch.as_tensor(~free)] == 0).all()
@@ -217,8 +263,7 @@ def test_dense_solver_matches_jax(noise_case):
 def _hold_at_tier(cost, neq, ref_cost, ref_neq, tol, label):
     np.testing.assert_allclose(float(cost), float(ref_cost), rtol=tol[0],
                                err_msg=label)
-    for name, a, b in zip(NEQ2_NAMES, neq, ref_neq):
-        _close_scaled(a, b, tol[1], rtol=tol[2], msg=f"{label}: {name}")
+    _close_neq(neq, ref_neq, tol[1], tol[2], label)
 
 
 def test_bf16_tier_against_f32_and_jax(noise_case):
@@ -234,8 +279,9 @@ def test_bf16_tier_against_f32_and_jax(noise_case):
     _hold_at_tier(cost16, neq16, cost32, neq32, BF16_TIER, "bf16 vs f32")
     ref_cost, ref_neq = c.jsolve.build(c.jprob_d,
                                        cfg_j._replace(sample_bf16=True))
-    _hold_at_tier(cost16, neq16, ref_cost, ref_neq, BF16_TIER,
-                  "bf16 vs JAX bf16")
+    _hold_at_tier(cost16, neq16, ref_cost,
+                  _camera_major(ref_neq, c.tprob_d.cam_states.pose.shape[0]),
+                  BF16_TIER, "bf16 vs JAX bf16")
     # the f32 build is unchanged by a bf16 build in between
     cost32b, _ = c.tsolve.build(c.tprob_d, cfg_t)
     assert float(cost32b) == float(cost32)

@@ -541,12 +541,10 @@ def test_bundle_adjustment_without_landmarks():
         uv_ref=np.zeros((0, 2)), intr_ref=np.zeros((0, 8)),
         intr_target=np.zeros((0, 8)), valid=np.zeros(0, bool),
         fixed_cams=np.array([True, True, False]), device="cpu")
-    for use_fused in (None, False):
-        out, res = geometric_ba.bundle_adjustment(prob, "ds", ba.BAConfig(),
-                                                  use_fused=use_fused)
-        assert out is prob
-        assert float(res.cost) == float(res.initial_cost) == 0.0
-        assert res.iterations == 0
+    out, res = geometric_ba.bundle_adjustment(prob, "ds", ba.BAConfig())
+    assert out is prob
+    assert float(res.cost) == float(res.initial_cost) == 0.0
+    assert res.iterations == 0
 
 
 def _write_euroc_dir(root, seq, n_frames):

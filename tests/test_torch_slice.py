@@ -388,8 +388,9 @@ def test_profile_solve_mega_families_on_plain_path(family, bf16):
     assert (res["family"], res["bf16"]) == (family, bf16)
     assert res["K"] == 12
     if family == "dense":
-        # 48 landmarks x 4 slots, the empty ones zero columns
-        assert (res["observations"], res["columns"]) == (48 * 3, 48 * 4)
+        # 48 landmarks x 4 slots, the empty ones zero columns, then the
+        # zero column the plan's dummies name
+        assert (res["observations"], res["columns"]) == (48 * 3, 48 * 4 + 1)
     else:
         assert res["columns"] == res["observations"] + 1
     for k in ("build_ms", "megakernel_ms", "solve_lam_ms", "wall_ms"):

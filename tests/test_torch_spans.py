@@ -11,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from photometric_bundle_adjustment_tpu_torch import profile_solve
 from photometric_bundle_adjustment_tpu_torch.models import geometric_ba, synthetic
+from photometric_bundle_adjustment_tpu_torch.optim import ba
 from photometric_bundle_adjustment_tpu_torch.pipeline import pba_refine
 from photometric_bundle_adjustment_tpu_torch.utils import spans
 
@@ -106,19 +107,28 @@ def test_level_seconds_are_the_spans(refined):
 
 @pytest.mark.parametrize("use_fused", [True, False])
 def test_geometric_solve_spans(use_fused):
+    """``bundle_adjustment``'s spans, or with ``use_fused=False`` those of
+    the scatter-add reference solver ``make_solver`` called directly: its
+    ``lm.*`` spans and no ``geo.*`` span."""
     problem, _, _ = synthetic.synth_ba_problem(K=8, L=96, pixel_noise=0.5,
                                                device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _, res = geometric_ba.bundle_adjustment(problem, "pinhole",
-                                                use_fused=use_fused)
+        if use_fused:
+            _, res = geometric_ba.bundle_adjustment(problem, "pinhole")
+        else:
+            _, res = geometric_ba.make_solver("pinhole")(problem,
+                                                         ba.BAConfig())
     recorded = _spans(prof)
     assert res.tries > 0
     assert _count(recorded, "geo.plan") == (1 if use_fused else 0)
-    assert _count(recorded, "geo.solve") == 1
+    assert _count(recorded, "geo.solve") == (1 if use_fused else 0)
     assert _count(recorded, "lm.build") == res.builds
     assert _count(recorded, "lm.accept") == res.tries
     assert _count(recorded, "lm.damped") == res.tries
     assert _count(recorded, "lm.cost") == res.residual_passes
+    if not use_fused:
+        assert not [s for s in recorded if s[0].startswith("geo.")]
+        return
     (solve,) = [s for s in recorded if s[0] == "geo.solve"]
     assert all(_within(s, solve) for s in recorded if s[0].startswith("lm."))
     for plan in (s for s in recorded if s[0] == "geo.plan"):
