@@ -31,11 +31,11 @@ runs:
 
   phase 2 (``build_mega``): the payload's Jacobian rows and A0/A1 handed
     to ``fused.assemble``, with the plan of either family: the chunk
-    family's ``SchurPlan`` (``optim/schur_plan.build_schur_plan`` on the
-    kernel's columns) or the dense family's ``DenseLmSchurPlan``
-    (``fused.densify_problem``, slot-major); then ``fused.solve_lam``, the
-    damped reduced camera system by Cholesky and back-substitution for
-    the inverse depths.
+    family's ``SchurPlan`` (``optim/schur_plan_torch.build_schur_plan``
+    on the kernel's columns, on the problem's device) or the dense
+    family's ``DenseLmSchurPlan`` (``fused.densify_problem``, slot-major);
+    then ``fused.solve_lam``, the damped reduced camera system by
+    Cholesky and back-substitution for the inverse depths.
 
 ``BAConfig.sample_bf16`` picks the kernel's bf16 tier for a build: the
 kernel samples a bf16 copy of the image stack (made once per solver, by
@@ -58,6 +58,7 @@ window clamp is a TPU artefact and is not ported.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -72,10 +73,14 @@ from photometric_bundle_adjustment_tpu_torch.models.photometric_ba import (
     cam_retract,
 )
 from photometric_bundle_adjustment_tpu_torch.ops import _build
-from photometric_bundle_adjustment_tpu_torch.optim import ba, fused
+from photometric_bundle_adjustment_tpu_torch.optim import (
+    ba,
+    fused,
+    schur_plan_torch,
+)
 from photometric_bundle_adjustment_tpu_torch.optim.schur_plan import (
     DenseLmSchurPlan,
-    build_schur_plan,
+    SchurPlan,
 )
 
 P = 8            # DSO patch size
@@ -95,6 +100,10 @@ KERNEL_LAUNCHES_BF16 = 0
 # ``stack`` in this process, and the bytes of the copies made.
 STACK_CASTS = 0
 STACK_CAST_BYTES = 0
+# Chunk layouts built by ``build_chunk_mega_plan`` in this process, and
+# solvers made on a layout that an earlier solver was made on.
+CHUNK_PLANS = 0
+CHUNK_PLAN_REUSES = 0
 
 
 class MegaConsts(NamedTuple):
@@ -121,40 +130,66 @@ def _numpy(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def build_chunk_mega_plan(problem: ba.BAProblem):
-    """Chunk-plan layout for a ragged photometric problem (host, numpy).
+@dataclasses.dataclass(eq=False)
+class ChunkLayout:
+    """The chunk family's layout of one observation graph: ``plan`` the
+    ``SchurPlan`` over the kernel's columns, ``rows`` (N,) int64 the
+    observation row of each column (-1 for the zero column), both on the
+    problem's device; ``solvers`` counts the solvers made on it.  Unpacks
+    as ``(plan, rows)``."""
+
+    plan: SchurPlan
+    rows: torch.Tensor
+    solvers: int = 0
+
+    def __iter__(self):
+        return iter((self.plan, self.rows))
+
+
+def build_chunk_mega_plan(problem: ba.BAProblem) -> ChunkLayout:
+    """Chunk-plan layout for a ragged photometric problem, on the
+    problem's device.
 
     The kernel's columns are the valid observations sorted by target image
     (stable: an image's taps are then read by neighbouring blocks; the
     problem's own order measured the same on the card), and one zero
     column after them, which the plans' dummy entries gather.
-    The chunked segment-sum plans of ``build_schur_plan`` are built on
-    those columns, with exact chunk counts (no power-of-two padding:
-    PyTorch compiles nothing per shape).  Returns ``(cplan, rows)``:
-    ``rows`` (N,) maps each column to its observation row (-1 for the zero
-    column); feed it to ``make_mega_consts`` and ``cplan`` to
-    ``fused.plan_to``."""
+    The chunked segment-sum plans of ``schur_plan_torch.build_schur_plan``
+    are built on those columns, with exact chunk counts (no power-of-two
+    padding: PyTorch compiles nothing per shape).  The layout depends on
+    the observation graph alone (``valid``, the cameras, the landmarks,
+    the target images), so every pyramid level of one problem shares it.
+    It reads the device three times, each read a ``geo.plan.sync`` span:
+    the valid count, then the plan builder's two.  Feed ``rows`` to
+    ``make_mega_consts`` and the layout to ``make_mega_solver``."""
+    global CHUNK_PLANS
     o = problem.obs
     K = problem.cam_states.pose.shape[0]
     L = problem.inv_depth.shape[0]
-    vidx = np.flatnonzero(_numpy(o.valid) != 0)
-    timg = _numpy(o.aux.target_img)
-    vidx = vidx[np.argsort(timg[vidx], kind="stable")]
-    cplan = build_schur_plan(
-        _numpy(o.anchor_cam)[vidx], _numpy(o.target_cam)[vidx],
-        _numpy(o.landmark)[vidx], K, L, pair_chunk=PAIR_CHUNK,
-        lm_chunk=LM_CHUNK, cam_chunk=CAM_CHUNK, pow2_buckets=False,
+    ok = o.valid != 0
+    # valid rows by target image, each image's rows in problem order
+    # (numpy's stable argsort), then the invalid ones
+    last = torch.iinfo(torch.int64).max
+    _, order = torch.sort(torch.where(ok, o.aux.target_img.long(), last),
+                          stable=True)
+    (n,) = schur_plan_torch._read([ok.sum()])
+    vidx = order[:n]
+    plan = schur_plan_torch.build_schur_plan(
+        o.anchor_cam[vidx], o.target_cam[vidx], o.landmark[vidx], K, L,
+        pair_chunk=PAIR_CHUNK, lm_chunk=LM_CHUNK, cam_chunk=CAM_CHUNK,
+        pow2_buckets=False,
     )
-    return cplan, np.r_[vidx, -1]
+    CHUNK_PLANS += 1
+    return ChunkLayout(plan, torch.cat([vidx, vidx.new_full((1,), -1)]))
 
 
 def make_mega_consts(model: str, problem: ba.BAProblem,
                      rows) -> MegaConsts:
-    """The static columns of observation rows ``rows`` (-1: a zero
-    column), on the problem's device."""
+    """The static columns of observation rows ``rows`` (a tensor or an
+    array; -1: a zero column), on the problem's device."""
     dev = problem.inv_depth.device
     dtype = problem.inv_depth.dtype
-    rows = torch.as_tensor(np.asarray(rows), device=dev)
+    rows = torch.as_tensor(rows, device=dev)
     ok = rows >= 0
     take = torch.where(ok, rows, torch.zeros_like(rows))
     o = problem.obs
@@ -395,20 +430,23 @@ def build_mega(model: str, images, problem: ba.BAProblem,
 
 def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
                      problem_slot: ba.BAProblem, plan_slot=None, *,
-                     device="cuda"):
+                     layout: ChunkLayout | None = None, device="cuda"):
     """Megakernel photometric LM solver.
 
     With ``plan_slot`` (the ``DenseLmSchurPlan`` of a problem reordered by
     ``fused.densify_problem``): the dense slot-major family, the kernel
     on the slot rows and that plan.  Without it: the chunk-plan family
-    over the valid observations sorted by target image,
-    ``build_chunk_mega_plan``.  Both build with ``build_mega`` and solve
-    with ``fused.solve_lam``.
+    over the valid observations sorted by target image, on ``layout``
+    (the ``build_chunk_mega_plan`` of a problem with this observation
+    graph: no plan is built; ``CHUNK_PLAN_REUSES`` counts a layout that
+    an earlier solver was made on) or, without one, on a layout it builds.
+    Both build with ``build_mega`` and solve with ``fused.solve_lam``.
 
     Returns ``solve(problem, cfg) -> (problem, BAResult)``, with
     ``.build(problem, cfg)``, ``.solve_lam(neq, lam, free, cfg)``, the f32
     ``.images`` stack, ``.stack(cfg)`` (the stack a build with ``cfg``
-    samples), the kernel's ``.consts`` and the ``.plan`` exposed.
+    samples), the kernel's ``.consts``, the ``.plan`` and the chunk
+    family's ``.layout`` (None for the dense family) exposed.
     ``problem_slot`` fixes the observation graph; ``solve`` takes a
     problem with the same observations and any state.  A build with
     ``cfg.sample_bf16`` samples a bf16 copy of the stack, made at the
@@ -418,6 +456,10 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     if plan_slot is not None and not isinstance(plan_slot, DenseLmSchurPlan):
         raise TypeError(f"plan_slot must be a DenseLmSchurPlan, got "
                         f"{type(plan_slot).__name__}")
+    if plan_slot is not None and layout is not None:
+        raise ValueError("layout is the chunk family's; plan_slot the "
+                         "dense family's: pass one")
+    global CHUNK_PLAN_REUSES
     device = devices.resolve(device)
     problem_slot = ba.problem_to(problem_slot, device)
     images = images_flat.to(device=device, dtype=torch.float32)
@@ -428,7 +470,12 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
         plan = plan_slot
         rows = np.r_[np.where(valid, np.arange(valid.size), -1), -1]
     else:
-        plan, rows = build_chunk_mega_plan(problem_slot)
+        if layout is None:
+            layout = build_chunk_mega_plan(problem_slot)
+        elif layout.solvers:
+            CHUNK_PLAN_REUSES += 1
+        layout.solvers += 1
+        plan, rows = layout
     plan = fused.plan_to(plan, device)
     consts = make_mega_consts(model, problem_slot, rows)
     stacks = {torch.float32: images}
@@ -470,4 +517,5 @@ def make_mega_solver(model: str, images_flat: torch.Tensor, H: int, W: int,
     solve.stack = stack
     solve.consts = consts
     solve.plan = plan
+    solve.layout = layout
     return solve

@@ -25,8 +25,8 @@ tree's level sizes follow from its rows' counts alone (a row of c values
 has ceil(c / B^j) at level j), so one read gives every level.
 
 The numpy builders stay: tests hold these against them, and
-``ops/pba_mega.build_chunk_mega_plan`` and ``parallel/dist_fused.prepare``
-still build on the host.
+``parallel/dist_fused.prepare`` still builds on the host.
+``ops/pba_mega.build_chunk_mega_plan`` builds the room's plan here.
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ the landmark-sharded solver of ``parallel/dist_fused.py`` instead.
 (``utils/spans``): ``pba.problem`` (with ``pba.problem.images``, the image
 stack made and copied, and ``pba.problem.obs``, the observation tables and
 the problem), ``pba.pyramid``, per level ``pba.level.problem``,
-``pba.level.plan`` (with ``sample_bf16``, ``pba.level.stack``: the level's
-bf16 copy of the image stack) and ``pba.level.solve``, then
+``pba.level.plan`` (at the first level ``pba.level.plan.graph``: the
+chunk layout all levels share; with ``sample_bf16``, ``pba.level.stack``:
+the level's bf16 copy of the image stack) and ``pba.level.solve``, then
 ``pba.writeback``.
 
 ``pba.problem.images`` ships the images in their own dtype: one stack,
@@ -290,7 +291,11 @@ def refine_photometric(pipe, max_iterations: int = 20,
     iterations, tries, and the set-up, cast and solve seconds: the host
     seconds of the level's ``pba.level.plan``, ``pba.level.stack`` and
     ``pba.level.solve`` spans, each ended by a device sync (``stack_s`` is
-    0.0 without ``sample_bf16``, which casts nothing).
+    0.0 without ``sample_bf16``, which casts nothing).  The levels differ
+    only in their coordinates and reference patches, so the chunk layout
+    (``pba_mega.build_chunk_mega_plan``) is built once, on ``device``, in
+    the first level's plan under a ``pba.level.plan.graph`` span, and
+    every level's solver is made on it.
 
     ``sample_bf16`` runs the megakernel's bf16 tier: it samples a bf16 copy
     of each level's image stack, with the taps and all arithmetic in f32.
@@ -310,6 +315,7 @@ def refine_photometric(pipe, max_iterations: int = 20,
     state = problem
     solved, res = problem, None
     stats = []
+    layout = None   # the levels share one observation graph, so one layout
     for level in range(levels - 1, -1, -1):
         imgs_l, H_l, W_l = pyramid[level]
         flat_l = imgs_l.reshape(-1)
@@ -317,8 +323,11 @@ def refine_photometric(pipe, max_iterations: int = 20,
             prob_l = level_problem(state, pyramid, level)
         _sync(device)
         with span("pba.level.plan") as plan:
+            if layout is None:
+                with span("pba.level.plan.graph"):
+                    layout = pba_mega.build_chunk_mega_plan(prob_l)
             solve = pba_mega.make_mega_solver(
-                model, flat_l, H_l, W_l, prob_l, device=device
+                model, flat_l, H_l, W_l, prob_l, layout=layout, device=device
             )
             stack_s = 0.0
             if sample_bf16:

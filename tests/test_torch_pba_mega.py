@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from photometric_bundle_adjustment_tpu.core import cameras as jcam
 from photometric_bundle_adjustment_tpu.ops import patch_sample as jps
@@ -28,6 +29,7 @@ from photometric_bundle_adjustment_tpu.optim import ba as jba
 from photometric_bundle_adjustment_tpu_torch import interop
 from photometric_bundle_adjustment_tpu_torch.ops import pba_mega as tmega
 from photometric_bundle_adjustment_tpu_torch.optim import ba as tba
+from photometric_bundle_adjustment_tpu_torch.optim import schur_plan as nsp
 from scripts.profile_pba import build_euroc_scale_pba
 
 torch.set_num_threads(1)
@@ -75,13 +77,64 @@ def _jax_consts(model, problem, K):
 
 
 def _port_consts(model, tproblem):
+    """The port's layout and consts; the plan and rows as numpy arrays,
+    the consts made from the layout's own (tensor) rows."""
     cplan, rows = tmega.build_chunk_mega_plan(tproblem)
-    return cplan, rows, tmega.make_mega_consts(model, tproblem, rows)
+    consts = tmega.make_mega_consts(model, tproblem, rows)
+    return pytree.tree_map(_np, cplan), _np(rows), consts
+
+
+def _numpy_layout(tproblem):
+    """The chunk layout as the host built it with numpy: the valid rows
+    stable-sorted by target image, ``schur_plan.build_schur_plan`` on
+    them, and the zero column."""
+    o = tproblem.obs
+    vidx = np.flatnonzero(_np(o.valid) != 0)
+    vidx = vidx[np.argsort(_np(o.aux.target_img)[vidx], kind="stable")]
+    plan = nsp.build_schur_plan(
+        _np(o.anchor_cam)[vidx], _np(o.target_cam)[vidx],
+        _np(o.landmark)[vidx], tproblem.cam_states.pose.shape[0],
+        tproblem.inv_depth.shape[0], pair_chunk=tmega.PAIR_CHUNK,
+        lm_chunk=tmega.LM_CHUNK, cam_chunk=tmega.CAM_CHUNK,
+        pow2_buckets=False)
+    return plan, np.r_[vidx, -1]
+
+
+def _heavy_problem(tproblem, seed=4, O=900):
+    """``tproblem``'s cameras and landmarks under a heavy-tailed graph of O
+    rows: three tracks of 60 to 90 observations, the rest short, about a
+    tenth of the rows invalid and five landmarks with no valid
+    observation; every per-observation table gathered from the toy's
+    rows so that each has O rows."""
+    rng = np.random.default_rng(seed)
+    K = tproblem.cam_states.pose.shape[0]
+    L = tproblem.inv_depth.shape[0]
+    heavy = np.repeat([3, 17, 40], [60, 75, 90])
+    lm = rng.permutation(np.r_[heavy, rng.integers(0, L, O - heavy.size)])
+    valid = rng.random(O) > 0.1
+    valid[np.isin(lm, [5, 9, 21, 30, 44])] = False
+    an = rng.integers(0, K, O)
+    tn = (an + rng.integers(1, K, O)) % K
+    o = tproblem.obs
+    src = torch.as_tensor(rng.integers(0, o.valid.shape[0], O))
+    aux = o.aux._replace(**{f: getattr(o.aux, f)[src]
+                            for f in o.aux._fields})
+    aux = aux._replace(target_img=torch.as_tensor(
+        tn, dtype=aux.target_img.dtype))
+    obs = o._replace(**{f: getattr(o, f)[src] for f in o._fields
+                        if f != "aux"}, aux=aux)
+    obs = obs._replace(
+        anchor_cam=torch.as_tensor(an, dtype=o.anchor_cam.dtype),
+        target_cam=torch.as_tensor(tn, dtype=o.target_cam.dtype),
+        landmark=torch.as_tensor(lm, dtype=o.landmark.dtype),
+        valid=torch.as_tensor(valid, dtype=o.valid.dtype))
+    return tproblem._replace(obs=obs)
 
 
 def _jax_columns(meta, rows):
     """The JAX group row of each port column but the last (the zero
     column): the inverse of the JAX layout's ``order``."""
+    rows = _np(rows)
     order = meta["order"]
     g_of_obs = np.full(order.max() + 1, -1)
     g_of_obs[order[order >= 0]] = np.flatnonzero(order >= 0)
@@ -141,6 +194,35 @@ def test_chunk_plan_arrays_identical(case):
         np.testing.assert_allclose(_np(getattr(tconsts, name))[:, :-1],
                                    _np(getattr(jconsts, name))[:, jcol],
                                    rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("graph", ["toy", "heavy"])
+def test_chunk_layout_equals_numpy_plan(case, graph):
+    """``build_chunk_mega_plan`` on the problem's device against the numpy
+    layout the host built: the rows, and every leaf of the plan in value,
+    shape and int64 dtype."""
+    tproblem = (case.tproblem if graph == "toy"
+                else _heavy_problem(case.tproblem))
+    plans = tmega.CHUNK_PLANS
+    layout = tmega.build_chunk_mega_plan(tproblem)
+    assert tmega.CHUNK_PLANS == plans + 1
+    ref_plan, ref_rows = _numpy_layout(tproblem)
+    valid = _np(tproblem.obs.valid) != 0
+    if graph == "heavy":
+        assert not valid.all() and np.bincount(
+            _np(tproblem.obs.landmark)[valid]).max() >= 60
+    assert ref_rows.size == valid.sum() + 1
+    cplan, rows = layout
+    assert rows.dtype == torch.int64
+    np.testing.assert_array_equal(_np(rows), ref_rows)
+    port = pytree.tree_leaves(cplan)
+    ref = pytree.tree_leaves(ref_plan,
+                             is_leaf=lambda x: isinstance(x, np.ndarray))
+    assert len(port) == len(ref) > 0
+    for i, (a, b) in enumerate(zip(port, ref)):
+        assert torch.is_tensor(a) and a.dtype == torch.int64, i
+        assert tuple(a.shape) == b.shape, i
+        np.testing.assert_array_equal(_np(a), b, err_msg=f"leaf {i}")
 
 
 @pytest.mark.parametrize("model", ["pinhole", "eucm", "ds", "kb4"])
